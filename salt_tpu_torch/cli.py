@@ -1,0 +1,118 @@
+"""Command-line entry points of the port: `idx` and SE `aln`.
+
+    python -m salt_tpu_torch.cli idx [-k 25] ref.fa snps.txt prefix
+    python -m salt_tpu_torch.cli aln [-d] [-c] [-r N] [-s N] [-m N] [-g RG]
+                                     [--device cuda|cpu] prefix reads.fq
+
+`aln` runs single-end Landau-Vishkin alignment in full suffix-array mode
+on --device (default cuda; asking for cuda without a GPU is an error).
+Option handling mirrors salt_tpu/cli.py; options of paths that are not
+ported yet exit with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _not_ported(what: str) -> int:
+    print(f"[aln] {what} is not ported to salt_tpu_torch yet (see "
+          "ROADMAP.md); use `python -m salt_tpu.cli` for it",
+          file=sys.stderr)
+    return 2
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    ap = argparse.ArgumentParser(prog="salt-tpu-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    ix = sub.add_parser("idx", help="build SNP-aware index")
+    ix.add_argument("-k", "--seed-len", type=int, default=25)
+    ix.add_argument("--compat-rpart", action="store_true",
+                    help="reproduce the reference's broken R-part anchors")
+    ix.add_argument("ref_fa")
+    ix.add_argument("snp_file")
+    ix.add_argument("prefix")
+
+    al = sub.add_parser("aln", help="align SE reads -> SAM on stdout")
+    al.add_argument("-t", "--threads", type=int, default=1)
+    # -n/-l are parsed but inert in the reference too (alnse.c:1016,1090;
+    # aux_init, alnse.c:1381)
+    al.add_argument("-n", "--num", type=int, default=-1)
+    al.add_argument("-g", "--group", default=None)
+    al.add_argument("-l", "--read-length", type=int, default=100)
+    al.add_argument("-c", "--xa-cigar", action="store_true")
+    al.add_argument("-d", "--md", action="store_true")
+    al.add_argument("-r", "--overlap", type=int, default=-1)
+    al.add_argument("-s", "--max-seed", type=int, default=50)
+    al.add_argument("-m", "--max-locate", type=int, default=1000)
+    al.add_argument("-p", "--pe", action="store_true")
+    al.add_argument("-X", "--extend", type=int, default=0,
+                    help="extension algorithm: 0=Landau-Vishkin, 1=SW")
+    al.add_argument("--batch-size", type=int, default=4096)
+    al.add_argument("--sa-mode", choices=["full", "sampled"], default="full")
+    al.add_argument("--shards", type=int, default=0)
+    al.add_argument("--device", default="cuda",
+                    help="torch device to align on (default: cuda)")
+    al.add_argument("index_prefix")
+    al.add_argument("read1")
+    al.add_argument("read2", nargs="?")
+
+    args = ap.parse_args(argv)
+    if args.cmd == "idx":
+        from salt_tpu.index.build import build_index_from_data
+        from salt_tpu.index.store import save_index
+        from salt_tpu.io.fasta import read_records
+        from salt_tpu.io.snp import read_snp_blocks
+
+        mode = "reference_compat" if args.compat_rpart else "exact"
+        contig_data = [(r.name, r.comment or "(null)", r.seq)
+                       for r in read_records(args.ref_fa)]
+        blocks = list(read_snp_blocks(args.snp_file))
+        save_index(build_index_from_data(contig_data, blocks,
+                                         l_seed=args.seed_len,
+                                         r_anchor_mode=mode), args.prefix)
+        return 0
+
+    if args.pe or args.read2:
+        return _not_ported("paired-end alignment (-p)")
+    if args.extend == 1:
+        return _not_ported("Smith-Waterman extension (-X 1)")
+    if args.shards > 0:
+        return _not_ported("the sharded aligner (--shards)")
+    if args.sa_mode != "full":
+        return _not_ported("sampled suffix-array mode (--sa-mode sampled)")
+    if args.threads != 1:
+        print(f"[aln] -t {args.threads} ignored: batches are data-parallel "
+              "on the device", file=sys.stderr)
+    if args.num != -1:
+        print("[aln] -n is inert (the reference overwrites max_diff "
+              "internally, alnse.c:1016,1090); accepted for compatibility",
+              file=sys.stderr)
+    if args.read_length != 100:
+        print("[aln] -l is inert (read length is taken from the input); "
+              "accepted for compatibility", file=sys.stderr)
+
+    from salt_tpu.index.store import load_index
+
+    from .pipeline.engine import SEAligner, SEOptions
+
+    idx = load_index(args.index_prefix)
+    opts = SEOptions(
+        l_overlap=args.overlap if args.overlap > 0 else idx.l_seed,
+        max_seed=args.max_seed,
+        max_locate=args.max_locate,
+        print_xa_cigar=args.xa_cigar,
+        print_nm_md=args.md,
+        rg_id=args.group,
+        batch_size=args.batch_size,
+    )
+    SEAligner(idx, opts, device=args.device).align_file(
+        args.read1, sys.stdout, cmd=" ".join(["salt-tpu-torch"] + argv))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,89 @@
+"""Shared inputs for the salt_tpu_torch parity tests (tests/test_torch_*.py).
+
+Every fixture is synthesized in the repo from a numpy seed and handed to
+both salt_tpu and its port.
+"""
+
+import io
+
+import numpy as np
+
+from salt_tpu.index.build import build_index_from_data
+from salt_tpu.io.fasta import SeqRecord, parse_records
+from salt_tpu.io.snp import SnpBlock
+
+BASES = "ACGT"
+
+
+def tiny_genome(genome_len=4096, n_snps=40, seed=5):
+    """The genome, SNP overlay and index of __graft_entry__._tiny_fixture.
+    Returns (idx, genome, snp_pos, stype, rng) with rng positioned where
+    the fixture draws its reads."""
+    rng = np.random.default_rng(seed)
+    genome = "".join(BASES[c] for c in rng.integers(0, 4, genome_len))
+    snp_pos = np.sort(
+        rng.choice(np.arange(50, genome_len - 50), size=n_snps, replace=False)
+    ).astype(np.uint32)
+    stype = []
+    for p in snp_pos:
+        ref = BASES.index(genome[p])
+        alt = (ref + int(rng.integers(1, 4))) % 4
+        stype.append((1 << ref) | (1 << alt) | (ref << 4))
+    block = SnpBlock("chr1", snp_pos, np.array(stype, np.uint8))
+    idx = build_index_from_data([("chr1", "synthetic", genome)], [block],
+                                l_seed=19)
+    return idx, genome, snp_pos, stype, rng
+
+
+def tiny_fixture(n_reads=64, read_len=100):
+    """(idx, records): __graft_entry__._tiny_fixture's genome and reads
+    (SNP alleles flipped half the time), plus a substitution-heavy and an
+    indel-bearing copy of every third read so the gapped path runs."""
+    idx, genome, snp_pos, stype, rng = tiny_genome()
+    reads = []
+    for _ in range(n_reads):
+        start = int(rng.integers(0, len(genome) - read_len))
+        r = list(genome[start : start + read_len])
+        for j, p in enumerate(snp_pos):
+            if start <= p < start + read_len and rng.random() < 0.5:
+                alleles = [c for c in range(4) if (stype[j] >> c) & 1]
+                r[p - start] = BASES[alleles[-1]]
+        reads.append("".join(r))
+    for i in range(0, n_reads, 3):
+        r = list(reads[i])
+        for _ in range(5):
+            j = int(rng.integers(0, read_len))
+            r[j] = BASES[(BASES.index(r[j]) + 1) % 4]
+        reads.append("".join(r))
+        r = list(reads[i])
+        j = int(rng.integers(10, read_len - 10))
+        del r[j : j + int(rng.integers(1, 4))]
+        reads.append("".join(r + ["A"] * (read_len - len(r))))
+    return idx, [SeqRecord(f"t{i}", None, s, "I" * len(s))
+                 for i, s in enumerate(reads)]
+
+
+def repeat_fixture(tmp_dir, genome_len=50_000, n_reads=192, seed=3):
+    """(idx, records): a genome_gen repeat genome with ~1 SNP per 100 bp
+    and wgsim reads carrying substitutions and indels."""
+    from salt_tpu.sim.genome_gen import sample_snps, synthesize_genome, write_fasta
+    from salt_tpu.sim.wgsim import SimParams, simulate
+
+    rng = np.random.default_rng(seed)
+    ((name, codes),) = synthesize_genome(genome_len, 1, seed=seed)
+    n = codes == 4   # keep the repeats, drop the assembly-gap runs
+    codes[n] = rng.integers(0, 4, int(n.sum()))
+    gpos, _alt, stype = sample_snps(codes, 100, rng)
+    fa = f"{tmp_dir}/genome.fa"
+    write_fasta([(name, codes)], fa)
+    idx = build_index_from_data(
+        [(name, "repeat", "".join(BASES[c] for c in codes))],
+        [SnpBlock(name, gpos.astype(np.uint32), stype)], l_seed=19)
+    r1, r2 = io.StringIO(), io.StringIO()
+    simulate(fa, r1, r2, SimParams(err_rate=0.01, mut_rate=0.005,
+                                   indel_frac=0.4, n_pairs=n_reads,
+                                   size_l=100, size_r=100, dist=300,
+                                   std_dev=30, seed=seed),
+             mut_out=io.StringIO())
+    r1.seek(0)
+    return idx, list(parse_records(r1))
