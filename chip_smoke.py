@@ -3,55 +3,123 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the LV kernel (csrc/lv.cu) from source.
-2. Kernel phase: the CUDA LV kernel against its plain PyTorch version on
-   the card, exact equality, over k in {0, 3, 10, 30}, L in {70, 100,
+   versions, and builds the two kernels (csrc/lv.cu, csrc/sw.cu) and the
+   native host library from source, side by side.
+2. K1 kernel phase: the CUDA LV kernel against its plain PyTorch version
+   on the card, exact equality, over k in {0, 3, 10, 30}, L in {70, 100,
    151, 250}, ragged N, inactive lanes, SNP nibbles, planted
    substitutions and indels, and positions >= 2^31 in a reference of
    more than 2^28 words.  Times both at the aligner's shapes.
-3. Slice phase: a chr21-scale SNP-aware index (45M bases, 1 SNP per
-   300 bp) built in process, 4 x 8,192 simulated 100 bp reads (0.1%
-   substitutions, ~10% with a 1-3 bp indel) aligned by SEAligner on the
-   card: one warm-up batch and three timed ones.  Checks the kernel ran,
-   the mapped and correct shares, and that the first 1,024 reads give
-   byte-identical SAM on the CPU.
+3. K2 kernel phase: the CUDA Smith-Waterman score kernel against its
+   plain PyTorch version on the card, exact equality, in SNP and plain
+   mode over (L, W) in {(100, 105), (104, 512), (152, 512), (250, 768),
+   (33, 40)} with ragged B, ref_len from 0 to W, multi-bit and 0/15
+   reference nibbles, N and padding read codes, planted substitutions and
+   indels and unrelated pairs, one case at L = 2,047, and a sample of
+   each case against the numpy oracle.  Times both at the two shapes the
+   aligner gives it.
+4. Slice phases on one chr21-scale SNP-aware index (45M bases, 1 SNP per
+   300 bp) built in process: SE with Landau-Vishkin extension, SE with
+   Smith-Waterman extension (-X 1), and paired-end with mate rescue.  Each
+   runs one warm-up batch and timed ones with every launch count set to 0
+   just before, checks that its kernels ran, the mapped and correct
+   shares, and that a prefix of the reads gives byte-identical SAM on the
+   CPU (and, for the SW paths, on the card with the pre-filter off).
 
 Every phase raises on failure.  The last two lines of stdout are the
 kernels' JSON record and {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, when no CUDA device is available.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from salt_tpu.index.build import build_index_from_data
-from salt_tpu.io.fasta import SeqRecord
-from salt_tpu.io.snp import SnpBlock
-from salt_tpu.utils.metrics import metrics, metrics_reset
+from salt_tpu_torch.index.build import build_index_from_data
+from salt_tpu_torch.io.fasta import SeqRecord
+from salt_tpu_torch.io.snp import SnpBlock
 from salt_tpu_torch.ops.lv import lv_distance_plain
-from salt_tpu_torch.ops.lv_cuda import LV, SOURCE, lv_distance_cuda
+from salt_tpu_torch.ops.lv_cuda import LV, lv_distance_cuda
+from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
+from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda
 from salt_tpu_torch.ops.uint import U32, take_u32
 from salt_tpu_torch.pipeline.device_index import pack_nibbles
 from salt_tpu_torch.pipeline.engine import SEAligner, SEOptions
+from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
+from salt_tpu_torch.utils.metrics import metrics, metrics_reset
+from salt_tpu_torch.utils.native import load_native
 
 GENOME_LEN = 45_000_000
 SNP_EVERY = 300
 READ_LEN = 100
 BATCH = 8192
-N_TIMED = 3
+N_TIMED = 3          # timed batches of the SE LV phase
+N_TIMED_SW = 2       # timed batches of the -X 1 phase, chunks of the PE phase
+PE_CHUNK = BATCH // 2
 CPU_CHECK = 1024
+PE_CPU_CHECK = 512
+# share of pairs with both ends within 5 bp of truth: 98.2% in a CPU run
+# of this script's PE phase on a 3,000,000-base genome (2,048 pairs); the
+# pairs that miss are rescued ends that SW soft-clips by more than 5 bp
+PE_CORRECT_FLOOR = 0.95
 SEED = 11
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+INT32_LANES_PER_SM = 64       # Hopper SM: 64 int32 lanes, one op a clock
+KERNELS = {"lv_distance": LV, "sw_score": SW}
 
 
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def int32_ops_per_s() -> float:
+    """The card's peak int32 rate: SMs x 64 lanes x the maximum SM clock
+    nvidia-smi reports (one operation per lane and clock)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_sm * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    int32 operations over the int32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": n_ops}
+
+
+def timed(fn, reps):
+    """Mean host-clock ms per call over reps calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def time_turns(kern, plain, kern_reps=50, plain_reps=5) -> dict:
+    """Kernel and plain version in turns plain, kernel, kernel, plain on
+    the host clock, and their device time from torch.profiler."""
+    p1, k1, k2, p2 = (timed(plain, plain_reps), timed(kern, kern_reps),
+                      timed(kern, kern_reps), timed(plain, plain_reps))
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "turns_ms": [p1, k1, k2, p2],
+            "device_ms": device_ms(kern, kern_reps),
+            "plain_device_ms": device_ms(plain, plain_reps)}
 
 
 # ---------------------------------------------------------------- inputs
@@ -118,7 +186,7 @@ def check_kernel_case(words, pos, k, L, rng, dev, window_pad=4):
 
 def kernel_phase(dev):
     """K1 against its plain version on the card.  Returns (max_abs_err,
-    timings)."""
+    {N: timings and bound})."""
     rng = np.random.default_rng(SEED)
     n_ref = 2_000_000
     words = torch.from_numpy(pack_nibbles(one_hot_reference(rng, n_ref))
@@ -150,26 +218,25 @@ def kernel_phase(dev):
               f"equal ({n_mid} lanes with 0 < e < 255)", flush=True)
     del big
     torch.cuda.empty_cache()
-    return max_err, {N: time_kernel(words, N, rng, dev) for N in (8192, 16384)}
+    ops = int32_ops_per_s()
+    return max_err, {N: time_kernel(words, N, rng, dev, ops)
+                     for N in (8192, 16384)}
 
 
-def time_kernel(words, N, rng, dev, k=10, L=READ_LEN):
-    """Mean ms per call of the kernel and of the plain version at (N, L,
-    k), run in turns plain, kernel, kernel, plain."""
+def time_kernel(words, N, rng, dev, ops_per_s, k=10, L=READ_LEN):
+    """Times of the LV kernel and of its plain version at (N, L, k), and
+    the kernel's bound on these inputs.
+
+    Bytes: each candidate's window words, read, position, flag and
+    result.  Operations (an estimate, from the distances this run found):
+    a candidate of distance d walks (d' + 1)^2 band cells, d' = min(d, k),
+    at about 18 int32 operations a cell, plus one word step per 8 matched
+    bases, about L operations."""
     n_ref = words.shape[0] * 8
     pos = torch.from_numpy(rng.integers(0, n_ref - 200, N).astype(np.int64)).to(dev)
     seq = torch.from_numpy(planted_reads(rng, window_nibbles(words, pos, L + 8),
                                          L, 4)).to(dev)
     active = torch.ones(N, dtype=torch.bool, device=dev)
-
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
 
     def kern():
         return lv_distance_cuda(words, pos, active, seq, k, 4)
@@ -177,10 +244,10 @@ def time_kernel(words, N, rng, dev, k=10, L=READ_LEN):
     def plain():
         return lv_distance_plain(words, pos, active, seq, k, 4, text_words=True)
 
-    p1, k1, k2, p2 = timed(plain, 5), timed(kern, 50), timed(kern, 50), timed(plain, 5)
-    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "turns_ms": [p1, k1, k2, p2],
-            "device_ms": device_ms(kern, 50), "plain_device_ms": device_ms(plain, 5)}
+    d = torch.clamp(kern().long(), max=k)
+    n_ops = float((18 * (d + 1) ** 2 + L).sum())
+    n_bytes = N * (((L + 4) // 8 + 2) * 4 + L + 8 + 1 + 4)
+    return {**time_turns(kern, plain), **bound(n_bytes, n_ops, ops_per_s)}
 
 
 def device_ms(fn, reps):
@@ -196,7 +263,116 @@ def device_ms(fn, reps):
     return us / 1e3 / reps if us else None
 
 
-# ---------------------------------------------------------------- phase 3
+# ---------------------------------------------------------------- K2 phase
+
+SW_SHAPES = ((100, 105), (104, 512), (152, 512), (250, 768), (33, 40))
+SW_BATCHES = (1, 7, 129, 4096)
+
+
+def sw_case(rng, snp: bool, B: int, L: int, W: int, full_len=False):
+    """(refs, reads, ref_len) as uint8, uint8, int32 arrays.  Half of the
+    reads are copies of a stretch of their window with ~2% substitutions
+    and, in half of those, a 1-6 bp insertion or deletion; the rest are
+    unrelated.  Windows carry multi-bit, 0 and 15 nibbles (SNP mode) or N
+    codes (plain mode); reads carry N codes, and a third end in padding
+    (0 in SNP mode, 4 in plain mode).  ref_len runs from 0 to W unless
+    full_len."""
+    codes = rng.integers(0, 4, (B, W))
+    j = np.arange(L)[None, :]
+    at = rng.integers(0, max(W - L - 6, 1), (B, 1))
+    m = rng.integers(1, 7, (B, 1))
+    cut = rng.integers(5, max(L - 5, 6), (B, 1))
+    kind = rng.integers(0, 4, (B, 1))            # 0 del, 1 ins, 2-3 neither
+    src = at + j + np.where((kind == 0) & (j >= cut), m, 0) \
+        - np.where((kind == 1) & (j >= cut), m, 0)
+    read = np.take_along_axis(codes, np.clip(src, 0, W - 1), 1)
+    fresh = rng.integers(0, 4, (B, L))
+    read = np.where((kind == 1) & (j >= cut) & (j < cut + m), fresh, read)
+    read = np.where(rng.random((B, L)) < 0.02, (read + 1) & 3, read)
+    read = np.where(rng.random((B, 1)) < 0.5, read, fresh)     # unrelated half
+    u = rng.random((B, W))
+    v = rng.random((B, L))
+    pad = np.where(rng.random((B, 1)) < 0.33, rng.integers(1, 9, (B, 1)), 0)
+    if snp:
+        refs = 1 << codes
+        extra = 1 << rng.integers(0, 4, (B, W))
+        refs = np.where(u < 0.05, refs | extra, refs)                # two bits
+        refs = np.where(u < 0.01, refs | (1 << ((codes + 2) & 3)), refs)
+        refs = np.where(u > 0.995, 0, np.where(u > 0.99, 15, refs))
+        reads = np.where(v > 0.995, 15, 1 << read)
+        reads = np.where(j >= L - pad, 0, reads)
+    else:
+        refs = np.where(u > 0.995, 4, codes)
+        reads = np.where(v > 0.995, 4, read)
+        reads = np.where(j >= L - pad, 4, reads)
+    ref_len = rng.integers(0, W + 1, B)
+    ref_len[rng.random(B) < 0.3] = W
+    if B > 2:
+        ref_len[:2] = (0, W)
+    if full_len:
+        ref_len[:] = W
+    return (refs.astype(np.uint8), reads.astype(np.uint8),
+            ref_len.astype(np.int32))
+
+
+def check_sw_case(rng, snp, B, L, W, dev, n_oracle=2):
+    refs, reads, lens = sw_case(rng, snp, B, L, W)
+    t = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens)]
+    got = sw_score_cuda(*t, snp)
+    want = sw_score_plain(*t, snp)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = torch.nonzero(got != want)[:5, 0].tolist()
+        raise AssertionError(
+            f"SW kernel != plain, snp={snp} B={B} L={L} W={W}: rows {bad}, "
+            f"kernel {got[bad].tolist()}, plain {want[bad].tolist()}")
+    got = got.cpu().numpy()
+    for i in rng.choice(B, min(n_oracle, B), replace=False):
+        ref = sw_score_numpy(refs[i, : lens[i]], reads[i], snp)
+        if got[i] != ref:
+            raise AssertionError(f"SW kernel {got[i]} != numpy oracle {ref}, "
+                                 f"snp={snp} B={B} L={L} W={W} row {i}")
+    return int((got >= 50).sum())
+
+
+def sw_kernel_phase(dev, ops_per_s):
+    """K2 against its plain version (and the numpy oracle) on the card.
+    Returns (max_abs_err, {shape name: timings and bound}); any
+    disagreement raises, so the error returned is 0."""
+    rng = np.random.default_rng(SEED + 1)
+    for snp in (True, False):
+        for L, W in SW_SHAPES:
+            high = [check_sw_case(rng, snp, B, L, W, dev) for B in SW_BATCHES]
+            print(f"[kernel] sw {'snp  ' if snp else 'plain'} L={L:3d} W={W:3d} "
+                  f"B={SW_BATCHES}: equal ({sum(high)} scores >= 50)", flush=True)
+    high = check_sw_case(rng, True, 64, 2047, 2056, dev, n_oracle=1)
+    print(f"[kernel] sw snp   L=2047 W=2056 B=64: equal ({high} scores >= 50)",
+          flush=True)
+    times = {}
+    for name, snp, B, L, W in (("x1", True, BATCH, READ_LEN, READ_LEN + 5),
+                               ("pe", False, 4096, 104, 512)):
+        times[name] = time_sw_kernel(rng, snp, B, L, W, dev, ops_per_s)
+    return 0, times
+
+
+def time_sw_kernel(rng, snp, B, L, W, dev, ops_per_s):
+    """Times of the SW kernel and of its plain version at (B, L, W) with
+    full windows, and the kernel's bound: each pair's W + L code bytes,
+    length and score once, and ref_len x L cells at 12 int32 operations a
+    cell (two subtractions and a maximum each for E and F, the score's
+    test and select, an addition, three maxima for H and one for the
+    best)."""
+    refs, reads, lens = sw_case(rng, snp, B, L, W, full_len=True)
+    t = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens)]
+    n_ops = 12.0 * float(lens.astype(np.int64).sum()) * L
+    n_bytes = B * (W + L + 4 + 4)
+    out = time_turns(lambda: sw_score_cuda(*t, snp),
+                     lambda: sw_score_plain(*t, snp), plain_reps=3)
+    return {**out, **bound(n_bytes, n_ops, ops_per_s),
+            "shape": {"B": B, "L": L, "W": W, "snp_mode": snp}}
+
+
+# ---------------------------------------------------------------- slices
 
 
 def make_index(genome_len, snp_every, rng):
@@ -214,11 +390,13 @@ def make_index(genome_len, snp_every, rng):
     return idx, hap
 
 
-def simulate_reads(hap, n, L, rng, sub_rate=0.001, indel_frac=0.1):
-    """SE reads from the SNP haplotype: substitutions at sub_rate, and a
-    1-3 bp insertion or deletion in indel_frac of the reads.  Returns
-    (records, true leftmost positions)."""
-    starts = rng.integers(0, len(hap) - L - 8, n)
+def read_seqs(hap, starts, flip, L, rng, sub_rate=0.001, indel_frac=0.1,
+              heavy=None):
+    """Read strings from the SNP haplotype at `starts` (leftmost reference
+    positions): substitutions at sub_rate, a 1-3 bp insertion or deletion
+    in indel_frac of the reads, 15 substitutions in the reads flagged
+    `heavy`, and the reads flagged `flip` reverse-complemented."""
+    n = len(starts)
     j = np.arange(L)[None, :]
     src = starts[:, None] + j
     has = rng.random(n) < indel_frac
@@ -231,14 +409,47 @@ def simulate_reads(hap, n, L, rng, sub_rate=0.001, indel_frac=0.1):
     win = hap[src]
     win = np.where(ins & (j < at + m), rng.integers(0, 4, (n, L)), win)
     win = np.where(rng.random((n, L)) < sub_rate, (win + 1) & 3, win)
-    flip = rng.random(n) < 0.5                   # half from the reverse strand
+    if heavy is not None:
+        rank = np.argsort(rng.random((n, L)), axis=1)
+        win = np.where(heavy[:, None] & (rank < 15), (win + 1) & 3, win)
     win[flip] = 3 - win[flip, ::-1]
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     seqs = lut[win.astype(np.uint8)]
-    recs = [SeqRecord(f"r{i}_{starts[i]}", None,
-                      seqs[i].tobytes().decode("latin1"), "I" * L)
+    return [seqs[i].tobytes().decode("latin1") for i in range(n)]
+
+
+def simulate_reads(hap, n, L, rng):
+    """SE reads, half from the reverse strand.  Returns (records, true
+    leftmost positions)."""
+    starts = rng.integers(0, len(hap) - L - 8, n)
+    seqs = read_seqs(hap, starts, rng.random(n) < 0.5, L, rng)
+    recs = [SeqRecord(f"r{i}_{starts[i]}", None, seqs[i], "I" * L)
             for i in range(n)]
     return recs, starts
+
+
+def simulate_pairs(hap, n, L, rng):
+    """FR pairs with insert size normal(400, 30); 5% with one end
+    carrying 15 substitutions (singleton rescue) and 3% with the ends
+    2,000 bp apart (pair2 rescue).  Returns (first-end records,
+    second-end records, (n, 2) true leftmost positions)."""
+    ins = np.clip(rng.normal(400, 30, n).round().astype(np.int64), 2 * L, 600)
+    kind = rng.random(n)
+    far = (kind >= 0.05) & (kind < 0.08)
+    span = np.where(far, 2000 + L, ins)
+    left = rng.integers(0, len(hap) - 2700, n)
+    right = left + span - L
+    heavy_end = rng.integers(0, 2, n)
+    swap = rng.random(n) < 0.5                 # which end is the forward one
+    starts = np.stack([np.where(swap, right, left),
+                       np.where(swap, left, right)], 1)
+    ends = []
+    for e in (0, 1):
+        seqs = read_seqs(hap, starts[:, e], swap == (e == 0), L, rng,
+                         heavy=(kind < 0.05) & (heavy_end == e))
+        ends.append([SeqRecord(f"p{i}_{starts[i, 0]}_{starts[i, 1]}/{e + 1}",
+                               None, seqs[i], "I" * L) for i in range(n)])
+    return ends[0], ends[1], starts
 
 
 def accuracy(sam, truth):
@@ -252,63 +463,142 @@ def accuracy(sam, truth):
     return mapped / len(sam), ok / max(mapped, 1)
 
 
-def slice_phase(dev) -> int:
-    """Aligns the chr21-scale cell; returns the LV kernel launches of the
-    timed run."""
-    rng = np.random.default_rng(SEED)
-    batch = BATCH
-    t0 = time.perf_counter()
-    idx, hap = make_index(GENOME_LEN, SNP_EVERY, rng)
-    print(f"[slice] index: {GENOME_LEN} bases, {GENOME_LEN // SNP_EVERY} SNPs, "
-          f"host build {time.perf_counter() - t0:.1f} s", flush=True)
-    recs, truth = simulate_reads(hap, batch * (1 + N_TIMED), READ_LEN, rng)
+def reset_counts():
+    metrics_reset()
+    for kern in KERNELS.values():
+        kern.launches = 0
 
+
+def report_run(tag, n, unit, dt, need):
+    """Prints the rate, the stage table and the launch counts of a timed
+    run; raises unless every kernel in `need` launched.  Returns
+    {kernel: launches}."""
+    counts = {name: kern.launches for name, kern in KERNELS.items()}
+    print(f"[{tag}] {n} {unit} in {dt:.3f} s = {n / dt:.1f} {unit}/s", flush=True)
+    for name, (tot, cnt) in sorted(metrics().items(), key=lambda kv: -kv[1][0]):
+        print(f"[{tag}]   {name:<22} {tot:9.3f} s  {cnt:5d} calls", flush=True)
+    print(f"[{tag}] kernel launches in the timed run: {counts}", flush=True)
+    for name in need:
+        if counts[name] == 0:
+            raise AssertionError(f"the {tag} run never launched {name}")
+    return counts
+
+
+def assert_same_sam(tag, what, want, got):
+    diff = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    print(f"[{tag}] {what}: {len(diff)} of {len(want)} SAM records differ",
+          flush=True)
+    if diff or len(want) != len(got):
+        raise AssertionError(f"{tag}: {what} SAM differs, first at "
+                             f"{diff[:1]}:\n{want[diff[0]]}\n{got[diff[0]]}")
+
+
+def se_phase(tag, idx, recs, truth, dev, need, n_timed, **extra):
+    """One warm-up and n_timed timed batches of SEAligner on the card;
+    accuracy bounds; CPU rerun of the first reads.  Returns the timed
+    run's launch counts and the aligner."""
     opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
-                     print_xa_cigar=True, batch_size=batch, gap_batch=128)
+                     print_xa_cigar=True, batch_size=BATCH, gap_batch=128,
+                     **extra)
     t0 = time.perf_counter()
     al = SEAligner(idx, opts, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    print(f"[slice] index to {dev}: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.synchronize()
+    print(f"[{tag}] index to {dev}: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
-    warm = al.align_records(recs[:batch])
-    print(f"[slice] warm-up batch: {time.perf_counter() - t0:.2f} s", flush=True)
+    warm = al.align_records(recs[:BATCH])
+    print(f"[{tag}] warm-up batch: {time.perf_counter() - t0:.2f} s", flush=True)
 
-    metrics_reset()
-    LV.launches = 0
+    timed_recs = recs[BATCH : BATCH * (1 + n_timed)]
+    reset_counts()
     t0 = time.perf_counter()
-    out = al.align_records(recs[batch:])
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    out = al.align_records(timed_recs)
+    torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = LV.launches
-    stages = metrics()
-    n = len(out)
-    print(f"[slice] {n} reads in {dt:.3f} s = {n / dt:.1f} reads/s", flush=True)
-    for name, (tot, cnt) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
-        print(f"[slice]   {name:<22} {tot:9.3f} s  {cnt:5d} calls", flush=True)
-    print(f"[slice] LV kernel launches in the timed run: {launches}", flush=True)
-    if dev.type == "cuda" and launches == 0:
-        raise AssertionError("the timed run never launched the LV kernel")
-    mapped, correct = accuracy(out, truth[batch:])
-    n_gap = sum(1 for line in out if "I" in line.split("\t")[5]
-                or "D" in line.split("\t")[5])
-    print(f"[slice] mapped {mapped:.4%}, within 5 bp of truth {correct:.4%} "
+    counts = report_run(tag, len(out), "reads", dt, need)
+    mapped, correct = accuracy(out, truth[BATCH : BATCH + len(out)])
+    cig = [line.split("\t")[5] for line in out]
+    n_gap = sum(1 for c in cig if "I" in c or "D" in c)
+    print(f"[{tag}] mapped {mapped:.4%}, within 5 bp of truth {correct:.4%} "
           f"of mapped, {n_gap} gapped cigars", flush=True)
     if mapped < 0.9 or correct < 0.9 or n_gap == 0:
-        raise AssertionError("alignment accuracy out of bounds")
-    if dev.type == "cuda":
-        busy_share(al, recs[batch : 2 * batch])
+        raise AssertionError(f"{tag}: alignment accuracy out of bounds")
 
     t0 = time.perf_counter()
     cpu = SEAligner(idx, opts, device="cpu").align_records(recs[:CPU_CHECK])
-    diff = [i for i, (a, b) in enumerate(zip(cpu, warm[:CPU_CHECK])) if a != b]
-    print(f"[slice] CPU rerun of {CPU_CHECK} reads: {len(diff)} SAM records "
-          f"differ ({time.perf_counter() - t0:.1f} s)", flush=True)
-    if diff:
-        raise AssertionError(f"CPU and {dev} SAM differ, first at read "
-                             f"{diff[0]}:\n{cpu[diff[0]]}\n{warm[diff[0]]}")
-    return launches
+    assert_same_sam(tag, f"CPU rerun of {CPU_CHECK} reads "
+                    f"({time.perf_counter() - t0:.1f} s)", cpu, warm[:CPU_CHECK])
+    return counts, al, opts, warm
+
+
+def x1_phase(idx, recs, truth, dev):
+    counts, _al, opts, warm = se_phase(
+        "x1", idx, recs, truth, dev, ("sw_score",), N_TIMED_SW,
+        extend_algo="sw", device_sw="auto")
+    off = SEAligner(idx, dataclasses.replace(opts, device_sw="off"), device=dev)
+    assert_same_sam("x1", f"pre-filter off, {CPU_CHECK} reads on the card",
+                    off.align_records(recs[:CPU_CHECK]), warm[:CPU_CHECK])
+    return counts
+
+
+def pe_phase(idx, hap, dev):
+    rng = np.random.default_rng(SEED + 2)
+    n = PE_CHUNK * (1 + N_TIMED_SW)
+    r1, r2, truth = simulate_pairs(hap, n, READ_LEN, rng)
+    kw = dict(l_overlap=1, max_locate=500, print_nm_md=True,
+              print_xa_cigar=True, batch_size=BATCH, gap_batch=128)
+    al = PEAligner(idx, PEOptions(device_sw="auto", **kw), device=dev)
+    seen = set()
+    score = al._se._sw_scores
+
+    def noting_mode(refs, reads, lens, snp_mode):
+        seen.add(snp_mode)
+        return score(refs, reads, lens, snp_mode)
+
+    al._se._sw_scores = noting_mode
+    t0 = time.perf_counter()
+    warm = al.align_pairs(r1[:PE_CHUNK], r2[:PE_CHUNK])
+    print(f"[pe] warm-up chunk: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    reset_counts()
+    seen.clear()
+    t0 = time.perf_counter()
+    out = al.align_pairs(r1[PE_CHUNK:], r2[PE_CHUNK:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = report_run("pe", len(out) // 2, "pairs", dt,
+                        ("lv_distance", "sw_score"))
+    if seen != {True, False}:
+        raise AssertionError(f"pe: SW kernel ran in modes {seen}, expected the "
+                             "SNP mode (pair2) and the plain mode (singleton)")
+    t = truth[PE_CHUNK:]
+    both = mapped = 0
+    for i in range(len(t)):
+        f0, f1 = out[2 * i].split("\t"), out[2 * i + 1].split("\t")
+        m0, m1 = not int(f0[1]) & 4, not int(f1[1]) & 4
+        mapped += m0 + m1
+        both += (m0 and m1 and abs(int(f0[3]) - 1 - int(t[i, 0])) <= 5
+                 and abs(int(f1[3]) - 1 - int(t[i, 1])) <= 5)
+    proper = sum(1 for line in out[::2] if int(line.split("\t")[1]) & 2)
+    clipped = sum(1 for line in out if "S" in line.split("\t")[5])
+    print(f"[pe] ends mapped {mapped / (2 * len(t)):.4%}, both ends within 5 bp "
+          f"of truth {both / len(t):.4%} of pairs, proper pairs "
+          f"{proper / len(t):.4%}, {clipped} soft-clipped (rescued) ends",
+          flush=True)
+    if both / len(t) < PE_CORRECT_FLOOR:
+        raise AssertionError("pe: share of correct pairs under "
+                             f"{PE_CORRECT_FLOOR}")
+
+    a, b = r1[:PE_CPU_CHECK], r2[:PE_CPU_CHECK]
+    off = PEAligner(idx, PEOptions(device_sw="off", **kw), device=dev)
+    assert_same_sam("pe", f"pre-filter off, {PE_CPU_CHECK} pairs on the card",
+                    off.align_pairs(a, b), warm[: 2 * PE_CPU_CHECK])
+    t0 = time.perf_counter()
+    cpu = PEAligner(idx, PEOptions(device_sw="auto", **kw),
+                    device="cpu").align_pairs(a, b)
+    assert_same_sam("pe", f"CPU rerun of {PE_CPU_CHECK} pairs "
+                    f"({time.perf_counter() - t0:.1f} s)", cpu,
+                    warm[: 2 * PE_CPU_CHECK])
+    return counts
 
 
 def busy_share(al, recs):
@@ -324,47 +614,119 @@ def busy_share(al, recs):
         wall = time.perf_counter() - t0
     events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"[slice] profiled batch of {len(recs)} reads: wall {wall:.3f} s, "
+    print(f"[se] profiled batch of {len(recs)} reads: wall {wall:.3f} s, "
           f"device busy {busy:.4f} s = {busy / wall:.2%}", flush=True)
     for e in events[:8]:
-        print(f"[slice]   {e.self_device_time_total / 1e3:9.3f} ms  "
+        print(f"[se]   {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:6d}x  {e.key[:70]}", flush=True)
 
 
 # ---------------------------------------------------------------- main
 
 
+def build_all():
+    """Builds both kernels and the native host library side by side (one
+    compiler process each) and prints what ptxas reports."""
+    t0 = time.perf_counter()
+
+    def one(name, build):
+        t = time.perf_counter()
+        build()
+        return name, time.perf_counter() - t
+
+    jobs = [("lv.cu", LV.build), ("sw.cu", SW.build),
+            ("host library (g++)", load_native)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for name, dt in pool.map(lambda j: one(*j), jobs):
+            print(f"[build] {name}: {dt:.2f} s", flush=True)
+    print(f"[build] all three side by side: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for kern in (LV, SW):
+        for line in kern.build_log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling")):
+                print(f"[build] {kern.source.name}: {line.strip()}", flush=True)
+
+
+def kernel_record(name, kern, replaces, launches, max_err, t, others=()):
+    rec = {"name": name, "route": "cuda",
+           "source": f"salt_tpu_torch/csrc/{kern.source.name}",
+           "replaces": replaces, "launches": sum(launches.values()),
+           "launches_by_path": launches, "max_abs_err": max_err,
+           "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": None,
+           "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"]}
+    if "shape" in t:
+        rec["shape"] = t["shape"]
+    if others:
+        rec["other_shapes"] = [
+            {k: o[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "device_ms", "plain_device_ms")} for o in others]
+    return rec
+
+
+def print_times(tag, t):
+    print(f"[kernel] {tag} per call, host clock: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms (turns plain, kernel, kernel, plain: "
+          f"{t['turns_ms']}); device time (profiler): kernel {t['device_ms']} "
+          f"ms, plain {t['plain_device_ms']} ms; bound {t['bound_ms']:.6f} ms by "
+          f"{t['bound_by']} ({t['bytes']} bytes, {t['operations']:.0f} int32 "
+          f"operations)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    ops_per_s = int32_ops_per_s()
+    print(f"[bound] int32 peak {ops_per_s / 1e12:.3f} Top/s (SMs x "
+          f"{INT32_LANES_PER_SM} lanes x max SM clock), memory "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+    build_all()
+
+    lv_err, lv_times = kernel_phase(dev)
+    for N, t in lv_times.items():
+        print_times(f"lv N={N} L={READ_LEN} k=10", t)
+    sw_err, sw_times = sw_kernel_phase(dev, ops_per_s)
+    for t in sw_times.values():
+        print_times(f"sw {t['shape']}", t)
+
+    rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    LV.build()
-    print(f"[build] {SOURCE.name}: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in LV.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    idx, hap = make_index(GENOME_LEN, SNP_EVERY, rng)
+    print(f"[index] {GENOME_LEN} bases, {GENOME_LEN // SNP_EVERY} SNPs, host "
+          f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    recs, truth = simulate_reads(hap, BATCH * (1 + N_TIMED), READ_LEN, rng)
 
-    max_err, times = kernel_phase(dev)
-    for N, t in times.items():
-        print(f"[kernel] N={N} L={READ_LEN} k=10 per call, host clock: "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms (turns "
-              f"plain, kernel, kernel, plain: {t['turns_ms']}); device time "
-              f"(profiler): kernel {t['device_ms']} ms, plain "
-              f"{t['plain_device_ms']} ms", flush=True)
+    launches = {name: {} for name in KERNELS}
 
-    launches = slice_phase(dev)
-    t = times[8192]
-    print(json.dumps({"kernels": [{
-        "name": "lv_distance", "route": "cuda",
-        "source": "salt_tpu_torch/csrc/lv.cu",
-        "replaces": "salt_tpu/ops/lv_pallas.py:31",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"]}]}), flush=True)
+    def note(path, counts):
+        for name, c in counts.items():
+            launches[name][path] = c
+
+    counts, al, _opts, _warm = se_phase("se", idx, recs, truth, dev,
+                                        ("lv_distance",), N_TIMED)
+    note("se_lv", counts)
+    busy_share(al, recs[BATCH : 2 * BATCH])
+    del al
+    note("se_x1", x1_phase(idx, recs, truth, dev))
+    note("pe", pe_phase(idx, hap, dev))
+    torch.cuda.synchronize()
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    print(json.dumps({"kernels": [
+        kernel_record("lv_distance", LV, "salt_tpu/ops/lv_pallas.py:31,96,164",
+                      launches["lv_distance"], lv_err, lv_times[8192],
+                      [dict(lv_times[16384],
+                            shape={"N": 16384, "L": READ_LEN, "k": 10})]),
+        kernel_record("sw_score", SW, "salt_tpu/ops/sw_pallas.py:38,101,278",
+                      launches["sw_score"], sw_err, sw_times["x1"],
+                      [sw_times["pe"]]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

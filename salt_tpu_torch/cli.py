@@ -1,13 +1,18 @@
-"""Command-line entry points of the port: `idx` and SE `aln`.
+"""Command-line entry points of the port: `idx` and `aln`.
 
     python -m salt_tpu_torch.cli idx [-k 25] ref.fa snps.txt prefix
     python -m salt_tpu_torch.cli aln [-d] [-c] [-r N] [-s N] [-m N] [-g RG]
-                                     [--device cuda|cpu] prefix reads.fq
+                                     [-X 0|1] [--device cuda|cpu]
+                                     prefix reads.fq
+    python -m salt_tpu_torch.cli aln -p [-a MIN_TLEN] [-b MAX_TLEN] ...
+                                     prefix R1.fq R2.fq
 
-`aln` runs single-end Landau-Vishkin alignment in full suffix-array mode
-on --device (default cuda; asking for cuda without a GPU is an error).
-Option handling mirrors salt_tpu/cli.py; options of paths that are not
-ported yet exit with a message.
+`aln` runs single-end alignment (Landau-Vishkin extension, or
+Smith-Waterman with -X 1) or, with -p or two read files, paired-end
+alignment, in full suffix-array mode on --device (default cuda; asking
+for cuda without a GPU is an error).  Option handling mirrors
+salt_tpu/cli.py; options of paths that are not ported yet exit with a
+message.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def main(argv=None):
     ix.add_argument("snp_file")
     ix.add_argument("prefix")
 
-    al = sub.add_parser("aln", help="align SE reads -> SAM on stdout")
+    al = sub.add_parser("aln", help="align reads -> SAM on stdout")
     al.add_argument("-t", "--threads", type=int, default=1)
     # -n/-l are parsed but inert in the reference too (alnse.c:1016,1090;
     # aux_init, alnse.c:1381)
@@ -49,6 +54,8 @@ def main(argv=None):
     al.add_argument("-s", "--max-seed", type=int, default=50)
     al.add_argument("-m", "--max-locate", type=int, default=1000)
     al.add_argument("-p", "--pe", action="store_true")
+    al.add_argument("-a", "--min-tlen", type=int, default=250)
+    al.add_argument("-b", "--max-tlen", type=int, default=550)
     al.add_argument("-X", "--extend", type=int, default=0,
                     help="extension algorithm: 0=Landau-Vishkin, 1=SW")
     al.add_argument("--batch-size", type=int, default=4096)
@@ -62,10 +69,10 @@ def main(argv=None):
 
     args = ap.parse_args(argv)
     if args.cmd == "idx":
-        from salt_tpu.index.build import build_index_from_data
-        from salt_tpu.index.store import save_index
-        from salt_tpu.io.fasta import read_records
-        from salt_tpu.io.snp import read_snp_blocks
+        from .index.build import build_index_from_data
+        from .index.store import save_index
+        from .io.fasta import read_records
+        from .io.snp import read_snp_blocks
 
         mode = "reference_compat" if args.compat_rpart else "exact"
         contig_data = [(r.name, r.comment or "(null)", r.seq)
@@ -76,10 +83,6 @@ def main(argv=None):
                                          r_anchor_mode=mode), args.prefix)
         return 0
 
-    if args.pe or args.read2:
-        return _not_ported("paired-end alignment (-p)")
-    if args.extend == 1:
-        return _not_ported("Smith-Waterman extension (-X 1)")
     if args.shards > 0:
         return _not_ported("the sharded aligner (--shards)")
     if args.sa_mode != "full":
@@ -95,12 +98,10 @@ def main(argv=None):
         print("[aln] -l is inert (read length is taken from the input); "
               "accepted for compatibility", file=sys.stderr)
 
-    from salt_tpu.index.store import load_index
-
-    from .pipeline.engine import SEAligner, SEOptions
+    from .index.store import load_index
 
     idx = load_index(args.index_prefix)
-    opts = SEOptions(
+    common = dict(
         l_overlap=args.overlap if args.overlap > 0 else idx.l_seed,
         max_seed=args.max_seed,
         max_locate=args.max_locate,
@@ -109,8 +110,23 @@ def main(argv=None):
         rg_id=args.group,
         batch_size=args.batch_size,
     )
+    cmd = " ".join(["salt-tpu-torch"] + argv)
+    if args.pe or args.read2:
+        if not args.read2:
+            ap.error("paired-end alignment (-p) needs two read files")
+        from .pipeline.pe_engine import PEAligner, PEOptions
+
+        opts = PEOptions(min_tlen=args.min_tlen, max_tlen=args.max_tlen,
+                         **common)
+        PEAligner(idx, opts, device=args.device).align_files(
+            args.read1, args.read2, sys.stdout, cmd=cmd)
+        return 0
+
+    from .pipeline.engine import SEAligner, SEOptions
+
+    opts = SEOptions(extend_algo="sw" if args.extend == 1 else "lv", **common)
     SEAligner(idx, opts, device=args.device).align_file(
-        args.read1, sys.stdout, cmd=" ".join(["salt-tpu-torch"] + argv))
+        args.read1, sys.stdout, cmd=cmd)
     return 0
 
 

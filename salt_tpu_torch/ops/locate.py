@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from salt_tpu.constants import MAX_LOC_POS
+from ..constants import MAX_LOC_POS
 
 from .seed import Seeds
 from .uint import U32, as_i32, take_u32

@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from salt_tpu.constants import GAP_WINDOW_PAD, LV_MAX_K
+from ..constants import GAP_WINDOW_PAD, LV_MAX_K
 
 from . import lv_cuda
 from .uint import U32, as_i32, take, take_u32

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from salt_tpu.index.build import SaltIndex
+from ..index.build import SaltIndex
 
 from ..ops.rank import RankIndex, build_rank_index
 from ..ops.uint import u32_table

@@ -1,7 +1,7 @@
 """Host-side SE alignment engine: batching, device dispatch, hit
 finalization (query_set_hits semantics) and SAM record assembly.
-Port of the SE Landau-Vishkin path of salt_tpu/pipeline/engine.py in
-full suffix-array mode.
+Port of salt_tpu/pipeline/engine.py in full suffix-array mode, with
+Landau-Vishkin or Smith-Waterman (-X 1) extension.
 """
 
 from __future__ import annotations
@@ -13,20 +13,24 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from salt_tpu.constants import (
+from ..constants import (
     DEFAULT_MAX_LOCATE,
     DEFAULT_MAX_SEED,
     NST_NT4_TABLE,
     SE_MAX_N_AMBIGUOUS,
+    SW_GAP_EXTEND,
+    SW_GAP_OPEN,
     UINT32_MAX,
 )
-from salt_tpu.index.build import SaltIndex
-from salt_tpu.io.fasta import read_records, trim_readno
-from salt_tpu.io.sam import build_xa, emit_se, md_nm_tags_batch, sam_header
-from salt_tpu.utils.metrics import progress, stage
+from ..index.build import SaltIndex
+from ..io.fasta import read_records, trim_readno
+from ..io.sam import build_xa, emit_se, md_nm_tags_batch, sam_header
+from ..utils.metrics import progress, stage
 
 from ..ops.locate import Loci
 from ..ops.lv import NT2BIT_NP, lv_cigar_host
+from ..ops.ssw import SCORE_MAT16, ssw_align
+from ..ops.sw_batch import sw_score
 from .device_index import to_device_index
 from .se import (
     pack_result,
@@ -61,8 +65,22 @@ class SEOptions:
     verify_width: int = 64   # compact unique-candidate width (u)
     pe_locate: bool = False  # alnse_locate (PE) vs alnse_locate_alt caps
     gap_k: Optional[int] = None  # gapped threshold; None -> l_seq // 10
-    extend_algo: str = "lv"  # "sw" (-X 1) is a later slice
+    # -X 1: Smith-Waterman extension instead of Landau-Vishkin for reads
+    # with no ungapped hit (alnse_overlap_sw, alnse.c:1105-1164).  NOTE:
+    # the reference binary aborts on its own -X 1 path (is_gap=-1 feeds
+    # k=-1 into computeEditDistanceWithCigar's assert), so byte-parity is
+    # undefined; this implements the evident intent: best SW locus wins,
+    # SW cigar with soft clips, MAPQ from (score1, score2).
+    extend_algo: str = "lv"  # "lv" | "sw"
     sa_mode: str = "full"    # "sampled" is a later slice
+    sw_thres_score: int = 50     # aln_opt->thres_score (aln.h:144)
+    sw_filterd: int = 20         # aln_opt->filterd (aln.h:142)
+    # batched device SW pre-filter (ops/sw_batch.py): candidates whose
+    # textbook score cannot win are skipped before the exact host SSW.
+    # "auto" = on when the aligner's device is CUDA and the batch has at
+    # least device_sw_min_batch candidates; off on the CPU.
+    device_sw: str = "auto"      # "auto" | "on" | "off"
+    device_sw_min_batch: int = 32
 
     def cap(self) -> int:
         """Locate slots per read and strand."""
@@ -187,9 +205,12 @@ class SEAligner:
                  device="cuda"):
         self.index = index
         self.opts = opts or SEOptions()
-        if self.opts.extend_algo != "lv":
-            raise NotImplementedError(
-                f"extend_algo={self.opts.extend_algo!r} {_NOT_PORTED}")
+        if self.opts.extend_algo not in ("lv", "sw"):
+            raise ValueError(f"extend_algo={self.opts.extend_algo!r}: "
+                             "expected 'lv' or 'sw'")
+        if self.opts.device_sw not in ("auto", "on", "off"):
+            raise ValueError(f"device_sw={self.opts.device_sw!r}: expected "
+                             "'auto', 'on' or 'off'")
         if self.opts.sa_mode != "full":
             raise NotImplementedError(
                 f"sa_mode={self.opts.sa_mode!r} {_NOT_PORTED}")
@@ -263,8 +284,15 @@ class SEAligner:
             for r, fr in full_res.items():
                 needs_gap[r] = not fr["found"]
 
-        gap_res = {}
         gap_rows = np.nonzero(needs_gap)[0].tolist()
+        if o.extend_algo == "sw":
+            sw_res = {}
+            if gap_rows:
+                with stage("host.sw_extend"):
+                    self._sw_extend(gap_rows, out, int(L), fwd, rev, sw_res)
+            return res, needs_gap, sw_res, full_res
+
+        gap_res = {}
         if gap_rows:
             k = o.gap_k if o.gap_k is not None else max(int(L) // 10, 0)
 
@@ -288,7 +316,154 @@ class SEAligner:
                                            gapped(o.cap())))
         return res, needs_gap, gap_res, full_res
 
+    def _device_sw_on(self, n_items: int) -> bool:
+        """Whether the batched SW pre-filter runs for n_items candidates."""
+        o = self.opts
+        if o.device_sw == "off" or n_items == 0:
+            return False
+        if o.device_sw == "auto":
+            return (self.device.type == "cuda"
+                    and n_items >= o.device_sw_min_batch)
+        return True
+
+    def _sw_scores(self, refs: np.ndarray, reads: np.ndarray,
+                   lens: np.ndarray, snp_mode: bool) -> np.ndarray:
+        """Textbook SW scores of host-assembled uint8 windows and reads,
+        scored on the aligner's device; one read-back."""
+        with stage("device.sw_score"):
+            return sw_score(
+                torch.from_numpy(refs).to(self.device),
+                torch.from_numpy(reads).to(self.device),
+                torch.from_numpy(lens).to(self.device),
+                snp_mode, SW_GAP_OPEN, SW_GAP_EXTEND).cpu().numpy()
+
+    def _sw_extend(self, rows, out, L, fwd, rev, sw_res):
+        """Host SW extension over each gap-read's deduped loci
+        (alnse_check_sw/sw_snp semantics; native SSW), with an optional
+        batched device pre-filter: a locus whose textbook SW score is
+        below the current best cannot displace it (SSW's score never
+        exceeds the textbook score, ops/sw_batch.py)."""
+        o = self.opts
+        mix = self.index.mixref
+        sel = torch.as_tensor(rows, device=self.device)
+        loci_h = [(part.pos[sel].cpu().numpy(), part.pushed[sel].cpu().numpy())
+                  for part in (out.loci0, out.loci1)]
+        codes_f_rows = fwd[sel].cpu().numpy()
+        codes_r_rows = rev[sel].cpu().numpy()
+
+        # phase A: per read, the deduped in-range loci in scan order
+        per_read = []   # (ri, codes_f, codes_r, [(strand, pos), ...])
+        for i, ri in enumerate(rows):
+            cand = []
+            for strand, (ps, ks) in enumerate(loci_h):
+                prev = None
+                for pos, pushed in zip(ps[i].tolist(), ks[i].tolist()):
+                    if not pushed:
+                        continue
+                    if pos == prev or pos + L + 4 >= len(mix):
+                        continue
+                    prev = pos
+                    cand.append((strand, pos))
+            per_read.append((ri, codes_f_rows[i], codes_r_rows[i], cand))
+
+        pre = self._sw_extend_prefilter(per_read, L)
+
+        for pi, (ri, codes_f, codes_r, cand) in enumerate(per_read):
+            if not cand:
+                continue
+            reads = (NT2BIT_NP[np.minimum(codes_f, 4)].astype(np.int8),
+                     NT2BIT_NP[np.minimum(codes_r, 4)].astype(np.int8))
+            best = None
+            done = False
+            if pre is not None:
+                # common path: ONE host SSW call.  The reference's loop
+                # (accept if score1 >= running-best && span >= filterd)
+                # ends on the LAST max-score candidate; the device
+                # textbook scores bound SSW's (ssw <= textbook,
+                # sw_batch.py), so the last textbook-argmax is the only
+                # possible final winner.  Verify the assumption on the
+                # winner itself (ssw score == device score, span passes)
+                # and fall back to the exact sequential loop otherwise.
+                sc = pre[pi]
+                M = max(sc)
+                if M > 0:
+                    w = len(sc) - 1 - sc[::-1].index(M)
+                    strand, pos = cand[w]
+                    window = mix[pos : pos + L + 5].astype(np.int8)
+                    rr = ssw_align(reads[strand], window, SCORE_MAT16,
+                                   SW_GAP_OPEN, SW_GAP_EXTEND, L // 2)
+                    if (rr.score1 == M and
+                            rr.read_end1 - rr.read_begin1 + 1 >= o.sw_filterd):
+                        best = (rr, pos, strand)
+                        done = True
+            if not done:
+                b0 = -1
+                for k, (strand, pos) in enumerate(cand):
+                    if pre is not None and pre[pi][k] < max(b0, 0):
+                        continue  # cannot reach the accept threshold
+                    window = mix[pos : pos + L + 5].astype(np.int8)
+                    rr = ssw_align(reads[strand], window, SCORE_MAT16,
+                                   SW_GAP_OPEN, SW_GAP_EXTEND, L // 2)
+                    if (rr.score1 >= b0 and
+                            rr.read_end1 - rr.read_begin1 + 1 >= o.sw_filterd):
+                        b0 = rr.score1
+                        best = (rr, pos, strand)
+            if best is not None:
+                rr, pos, strand = best
+                cig = ""
+                if rr.read_begin1 != 0:
+                    cig += f"{rr.read_begin1}S"
+                cig += "".join(f"{c}{op}" for c, op in (rr.cigar or []))
+                if rr.read_end1 != L - 1:
+                    cig += f"{L - rr.read_end1 - 1}S"
+                sw_res[ri] = {
+                    "sw": True,
+                    "found": True,
+                    "pos": np.uint32(rr.ref_begin1 + pos),
+                    "strand": strand,
+                    "mapq": gen_mapq(rr.score1, rr.score2),
+                    "cigar": cig,
+                    "seq_start": rr.read_begin1,
+                }
+
+    def _sw_extend_prefilter(self, per_read, L):
+        """Textbook SW scores for every (read, locus) SW-extension
+        candidate, batched on the device.  Returns [scores per read] or
+        None when disabled."""
+        n_items = sum(len(c[3]) for c in per_read)
+        if not self._device_sw_on(n_items):
+            return None
+        mix = self.index.mixref
+        W = L + 5
+        refs = np.zeros((n_items, W), np.uint8)
+        reads = np.zeros((n_items, L), np.uint8)
+        lens = np.full(n_items, W, np.int32)
+        k = 0
+        for _ri, codes_f, codes_r, cand in per_read:
+            oh = (NT2BIT_NP[np.minimum(codes_f, 4)],
+                  NT2BIT_NP[np.minimum(codes_r, 4)])
+            for strand, pos in cand:
+                w = mix[pos : pos + W]
+                refs[k, : len(w)] = w
+                reads[k] = oh[strand]
+                k += 1
+        sc = self._sw_scores(refs, reads, lens, snp_mode=True)
+        out = []
+        k = 0
+        for _ri, _cf, _cr, cand in per_read:
+            out.append(sc[k : k + len(cand)].tolist())
+            k += len(cand)
+        return out
+
     # ---------------- per-read finalization ----------------
+
+    def _emit_sw(self, name, seq, rseq, qual, r) -> str:
+        o = self.opts
+        return emit_se(
+            self.index, name, seq, rseq, qual, int(r["pos"]),
+            int(r["strand"]), int(r["mapq"]), r["cigar"], "",
+            o.print_nm_md, o.rg_id, seq_start=int(r["seq_start"]),
+        )
 
     def _finalize_read(
         self, name, seq, rseq, qual, found, pos, strand, n_diff, is_gap,
@@ -445,6 +620,10 @@ class SEAligner:
                 continue
             if needs_gap[i] and i in gap_res:
                 r = gap_res[i]
+                if r.get("sw"):
+                    out_records[gi] = self._emit_sw(
+                        names[gi], codes[gi], rcodes[gi], quals[gi], r)
+                    continue
                 is_gap = True
             elif i in full_res:
                 r = full_res[i]

@@ -18,11 +18,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from salt_tpu.constants import GAP_WINDOW_PAD, NOGAP_MAX_DIFF
+from ..constants import GAP_WINDOW_PAD, NOGAP_MAX_DIFF
 
 from ..ops.locate import Loci, locate, sort_loci
 from ..ops.lv import lv_distance_batch
-from ..ops.lv_cuda import MAX_READ_LEN
+from ..ops.cuda_build import MAX_READ_LEN
 from ..ops.seed import seed_overlap
 from ..ops.uint import U32
 from ..ops.verify import (

@@ -1,7 +1,9 @@
-"""salt_tpu_torch never imports jax: its modules import in a fresh
-interpreter with jax blocked, and without nvcc or a GPU."""
+"""salt_tpu_torch imports neither jax nor any module of salt_tpu: every
+module of the package, and chip_smoke, imports in a fresh interpreter
+with both blocked, and without nvcc or a GPU."""
 
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -9,27 +11,54 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-MODULES = [
-    "salt_tpu_torch",
-    "salt_tpu_torch.ops.lv_cuda",
-    "salt_tpu_torch.ops.lv",
-    "salt_tpu_torch.pipeline.engine",
-    "salt_tpu_torch.cli",
-]
 
-# jax is made unimportable, so any import of it, direct or through a
-# jax-importing salt_tpu module, fails the subprocess
+def _port_modules():
+    """Every module of the package, found by walking its directory (no
+    import, so collection is the same in every worker)."""
+    pkg = os.path.join(ROOT, "salt_tpu_torch")
+    names = ["salt_tpu_torch"]
+    names += [m.name for m in pkgutil.walk_packages([pkg], "salt_tpu_torch.")]
+    return sorted(names)
+
+
+MODULES = _port_modules()
+
+# jax and salt_tpu are made unimportable, so any import of either, direct
+# or through another module, fails the subprocess
 _PROBE = """
 import importlib, sys
-class _NoJax:
+BLOCKED = ("jax", "jaxlib", "salt_tpu")
+class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "jaxlib":
-            raise ImportError("jax imported by " + repr(name))
-sys.meta_path.insert(0, _NoJax())
+        if name in BLOCKED or name.startswith(tuple(b + "." for b in BLOCKED)):
+            raise ImportError("blocked import of " + repr(name))
+sys.meta_path.insert(0, _Block())
 importlib.import_module(sys.argv[1])
-assert "jax" not in sys.modules
+bad = [m for m in sys.modules
+       if m in BLOCKED or m.startswith(tuple(b + "." for b in BLOCKED))]
+assert not bad, bad
 print("ok")
 """
+
+
+def test_walk_finds_the_package():
+    for name in ("salt_tpu_torch.cli", "salt_tpu_torch.constants",
+                 "salt_tpu_torch.index.build", "salt_tpu_torch.io.sam",
+                 "salt_tpu_torch.ops.lv_cuda", "salt_tpu_torch.ops.sw_cuda",
+                 "salt_tpu_torch.ops.ssw", "salt_tpu_torch.pipeline.engine",
+                 "salt_tpu_torch.pipeline.pe_engine",
+                 "salt_tpu_torch.utils.native"):
+        assert name in MODULES
+
+
+def test_probe_refuses_a_salt_tpu_import(tmp_path):
+    """The probe fails on a module that imports salt_tpu, even one of its
+    modules that does not import jax."""
+    (tmp_path / "leaky.py").write_text("import salt_tpu.constants\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
+    res = subprocess.run([sys.executable, "-c", _PROBE, "leaky"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "blocked import" in res.stderr
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -12,8 +12,8 @@ import pytest
 from salt_tpu.io.fasta import SeqRecord
 from salt_tpu.pipeline.engine import SEAligner as JaxAligner
 from salt_tpu.pipeline.engine import SEOptions as JaxOptions
-from salt_tpu.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.pipeline.engine import SEAligner, SEOptions
+from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 
 from torch_fixtures import repeat_fixture, tiny_fixture
 
@@ -147,7 +147,9 @@ def test_cli_aln_on_saved_index(tiny, tmp_path):
     _assert_same(want, [l for l in lines if not l.startswith("@")])
 
 
-@pytest.mark.parametrize("flags", [["-p"], ["-X", "1"], ["--shards", "2"],
+@pytest.mark.parametrize("flags", [["--shards", "2", "-p"],
+                                   ["--sa-mode", "sampled", "-X", "1"],
+                                   ["--shards", "2"],
                                    ["--sa-mode", "sampled"]])
 def test_cli_unported_paths_exit_with_message(tmp_path, flags):
     from salt_tpu_torch import cli

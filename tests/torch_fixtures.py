@@ -63,9 +63,54 @@ def tiny_fixture(n_reads=64, read_len=100):
                  for i, s in enumerate(reads)]
 
 
-def repeat_fixture(tmp_dir, genome_len=50_000, n_reads=192, seed=3):
+def port_index(idx):
+    """salt_tpu's index carried across into the port's own SaltIndex."""
+    from salt_tpu_torch.index.build import index_from_arrays
+
+    return index_from_arrays(idx)
+
+
+def as_records(named_seqs):
+    return [SeqRecord(name, None, s, "I" * len(s)) for name, s in named_seqs]
+
+
+def revcomp_str(s):
+    return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+
+def planted_pairs(genome, rng, n_pairs=48, read_len=100):
+    """(recs1, recs2): FR pairs from `genome` with inserts near 400; every
+    fourth pair has one end carrying 15 substitutions (singleton rescue),
+    every fifth has its ends 1,500 bp apart (pair2 rescue fails), every
+    seventh carries a 2 bp deletion in the second end."""
+    r1, r2 = [], []
+    for i in range(n_pairs):
+        ins = int(rng.integers(340, 460))
+        far = i % 5 == 4
+        span = 1500 + read_len if far else ins
+        start = int(rng.integers(0, len(genome) - span - 8))
+        a = list(genome[start : start + read_len])
+        b_start = start + span - read_len
+        b = list(genome[b_start : b_start + read_len + 4])
+        if i % 7 == 6:
+            del b[50:52]
+        b = b[:read_len]
+        if i % 4 == 3:
+            for j in rng.choice(read_len, 15, replace=False):
+                b[j] = BASES[(BASES.index(b[j]) + 1) % 4]
+        a, b = "".join(a), revcomp_str("".join(b))
+        if i % 2:
+            a, b = b, a
+        r1.append((f"p{i}/1", a))
+        r2.append((f"p{i}/2", b))
+    return as_records(r1), as_records(r2)
+
+
+def repeat_fixture(tmp_dir, genome_len=50_000, n_reads=192, seed=3,
+                   pairs=False):
     """(idx, records): a genome_gen repeat genome with ~1 SNP per 100 bp
-    and wgsim reads carrying substitutions and indels."""
+    and wgsim reads carrying substitutions and indels.  With pairs=True,
+    (idx, first-end records, second-end records)."""
     from salt_tpu.sim.genome_gen import sample_snps, synthesize_genome, write_fasta
     from salt_tpu.sim.wgsim import SimParams, simulate
 
@@ -86,4 +131,7 @@ def repeat_fixture(tmp_dir, genome_len=50_000, n_reads=192, seed=3):
                                    std_dev=30, seed=seed),
              mut_out=io.StringIO())
     r1.seek(0)
+    if pairs:
+        r2.seek(0)
+        return idx, list(parse_records(r1)), list(parse_records(r2))
     return idx, list(parse_records(r1))
