@@ -6,18 +6,29 @@
    versions, and builds the two kernels (csrc/lv.cu, csrc/sw.cu) and the
    native host library from source, side by side.
 2. K1 kernel phase: the CUDA LV kernel against its plain PyTorch version
-   on the card, exact equality, over k in {0, 3, 10, 30}, L in {70, 100,
-   151, 250}, ragged N, inactive lanes, SNP nibbles, planted
-   substitutions and indels, and positions >= 2^31 in a reference of
-   more than 2^28 words.  Times both at the aligner's shapes.
+   on the card, exact equality, over k in {0, 3, 7, 8, 10, 15, 16, 30}
+   (every group size of the kernel and the boundaries between them), L in
+   {70, 100, 151, 250} and one case at L = 2,047, ragged N, inactive
+   lanes, SNP nibbles, planted substitutions and indels, and positions
+   >= 2^31 in a reference of more than 2^28 words.  Times both at the
+   aligner's shapes, and the kernel on reads that match exactly (its
+   set-up and first run alone) and on inactive candidates (the launch
+   alone).
 3. K2 kernel phase: the CUDA Smith-Waterman score kernel against its
    plain PyTorch version on the card, exact equality, in SNP and plain
    mode over (L, W) in {(100, 105), (104, 512), (152, 512), (250, 768),
-   (33, 40)} with ragged B, ref_len from 0 to W, multi-bit and 0/15
+   (33, 40), (128, 140), (129, 140), (256, 300), (257, 300), (100, 5),
+   (7, 3)} with ragged B, ref_len from 0 to W, multi-bit and 0/15
    reference nibbles, N and padding read codes, planted substitutions and
-   indels and unrelated pairs, one case at L = 2,047, and a sample of
-   each case against the numpy oracle.  Times both at the two shapes the
-   aligner gives it.
+   indels and unrelated pairs, with the instantiation the shape chooses
+   and with each one the shape allows forced (the wavefront with 16 lanes
+   a pair, one thread a pair), one case at L = 2,047, and a sample of
+   each case against the numpy oracle.  At the two shapes the aligner can
+   give it at most (a whole batch, a whole chunk), times the plain
+   version and the chosen instantiation against the one-thread-per-pair
+   kernel in turns old, new, new, old; times the one-thread kernel at
+   L = 2,047.  After the slice phases, the same turns at the batch sizes
+   the paths really sent.
 4. Slice phases on one chr21-scale SNP-aware index (45M bases, 1 SNP per
    300 bp) built in process: SE with Landau-Vishkin extension, SE with
    Smith-Waterman extension (-X 1), and paired-end with mate rescue.  Each
@@ -33,6 +44,9 @@ printing no result, when no CUDA device is available.
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -44,11 +58,10 @@ import torch
 from salt_tpu_torch.index.build import build_index_from_data
 from salt_tpu_torch.io.fasta import SeqRecord
 from salt_tpu_torch.io.snp import SnpBlock
-from salt_tpu_torch.ops.lv import lv_distance_plain
+from salt_tpu_torch.ops.lv import lv_distance_plain, window_nibbles
 from salt_tpu_torch.ops.lv_cuda import LV, lv_distance_cuda
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
-from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda
-from salt_tpu_torch.ops.uint import U32, take_u32
+from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda, sw_score_launch
 from salt_tpu_torch.pipeline.device_index import pack_nibbles
 from salt_tpu_torch.pipeline.engine import SEAligner, SEOptions
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
@@ -69,8 +82,12 @@ PE_CPU_CHECK = 512
 # pairs that miss are rescued ends that SW soft-clips by more than 5 bp
 PE_CORRECT_FLOOR = 0.95
 SEED = 11
+# K1's group sizes change after k = 3, 7 and 15 (8, 16, 32 lanes, then two
+# diagonals a lane)
+LV_KS = (0, 3, 7, 8, 10, 15, 16, 30)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 int32 lanes, one op a clock
+PROFILE_TRIES = 2
 KERNELS = {"lv_distance": LV, "sw_score": SW}
 
 
@@ -113,13 +130,15 @@ def timed(fn, reps):
 
 def time_turns(kern, plain, kern_reps=50, plain_reps=5) -> dict:
     """Kernel and plain version in turns plain, kernel, kernel, plain on
-    the host clock, and their device time from torch.profiler."""
+    the host clock, the kernel's device time (device_ms) and the plain
+    version's (profiled_ms)."""
     p1, k1, k2, p2 = (timed(plain, plain_reps), timed(kern, kern_reps),
                       timed(kern, kern_reps), timed(plain, plain_reps))
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "turns_ms": [p1, k1, k2, p2],
             "device_ms": device_ms(kern, kern_reps),
-            "plain_device_ms": device_ms(plain, plain_reps)}
+            "profiler_ms": profiled_ms(kern, kern_reps),
+            "plain_device_ms": profiled_ms(plain, plain_reps)}
 
 
 # ---------------------------------------------------------------- inputs
@@ -131,13 +150,6 @@ def one_hot_reference(rng, n: int) -> np.ndarray:
     snp = rng.random(n) < 0.05
     mix[snp] |= (1 << rng.integers(0, 4, int(snp.sum()))).astype(np.uint8)
     return mix
-
-
-def window_nibbles(words: torch.Tensor, pos: torch.Tensor, n: int) -> np.ndarray:
-    """The n reference nibbles at each position (uint32 positions, word
-    index clamped), on the host."""
-    t = ((pos & U32)[:, None] + torch.arange(n, device=pos.device)) & U32
-    return ((take_u32(words, t >> 3) >> ((t & 7) * 4)) & 15).cpu().numpy()
 
 
 def planted_reads(rng, text: np.ndarray, L: int, max_edits: int) -> np.ndarray:
@@ -168,7 +180,7 @@ def planted_reads(rng, text: np.ndarray, L: int, max_edits: int) -> np.ndarray:
 
 def check_kernel_case(words, pos, k, L, rng, dev, window_pad=4):
     N = pos.shape[0]
-    text = window_nibbles(words, pos, L + 8)
+    text = window_nibbles(words, pos, L + 8).cpu().numpy()
     seq = torch.from_numpy(planted_reads(rng, text, L, min(k, 4))).to(dev)
     active = torch.from_numpy(rng.random(N) < 0.9).to(dev)
     got = lv_distance_cuda(words, pos, active, seq, k, window_pad)
@@ -192,7 +204,7 @@ def kernel_phase(dev):
     words = torch.from_numpy(pack_nibbles(one_hot_reference(rng, n_ref))
                              .view(np.int32)).to(dev)
     max_err = 0
-    for k in (0, 3, 10, 30):
+    for k in LV_KS:
         for L in (70, 100, 151, 250):
             N = 1000 + 37 * k + L          # not a multiple of the block size
             pos = rng.integers(0, n_ref - L - 80, N)
@@ -202,6 +214,13 @@ def kernel_phase(dev):
             max_err = max(max_err, err)
             print(f"[kernel] k={k:2d} L={L:3d} N={N}: equal "
                   f"({n_mid} lanes with 0 < e < 255)", flush=True)
+
+    pos = torch.from_numpy(rng.integers(0, n_ref - 2200, 300).astype(np.int64)).to(dev)
+    for k in (10, 30):
+        err, n_mid = check_kernel_case(words, pos, k, 2047, rng, dev)
+        max_err = max(max_err, err)
+        print(f"[kernel] k={k:2d} L=2047 N=300: equal ({n_mid} lanes with "
+              f"0 < e < 255)", flush=True)
 
     # positions >= 2^31: a reference of more than 2^28 words (~1 GiB)
     n_words = 2**28 + 2**20
@@ -234,8 +253,8 @@ def time_kernel(words, N, rng, dev, ops_per_s, k=10, L=READ_LEN):
     bases, about L operations."""
     n_ref = words.shape[0] * 8
     pos = torch.from_numpy(rng.integers(0, n_ref - 200, N).astype(np.int64)).to(dev)
-    seq = torch.from_numpy(planted_reads(rng, window_nibbles(words, pos, L + 8),
-                                         L, 4)).to(dev)
+    seq = torch.from_numpy(planted_reads(
+        rng, window_nibbles(words, pos, L + 8).cpu().numpy(), L, 4)).to(dev)
     active = torch.ones(N, dtype=torch.bool, device=dev)
 
     def kern():
@@ -247,26 +266,80 @@ def time_kernel(words, N, rng, dev, ops_per_s, k=10, L=READ_LEN):
     d = torch.clamp(kern().long(), max=k)
     n_ops = float((18 * (d + 1) ** 2 + L).sum())
     n_bytes = N * (((L + 4) // 8 + 2) * 4 + L + 8 + 1 + 4)
-    return {**time_turns(kern, plain), **bound(n_bytes, n_ops, ops_per_s)}
+    out = {**time_turns(kern, plain), **bound(n_bytes, n_ops, ops_per_s)}
+
+    # the same candidates with reads that match their windows exactly:
+    # every group leaves after its set-up and the first run
+    text = window_nibbles(words, pos, L).cpu().numpy()
+    exact = torch.from_numpy(np.log2(np.maximum(text & -text, 1))
+                             .astype(np.uint8)).to(dev)
+    if int(lv_distance_cuda(words, pos, active, exact, k, 4).max()) != 0:
+        raise AssertionError("LV kernel: exact copies of the window are not "
+                             "at distance 0")
+    out["setup_device_ms"] = device_ms(
+        lambda: lv_distance_cuda(words, pos, active, exact, k, 4), 50)
+    # and with every candidate inactive: a launch that loads one flag and
+    # stores 255 a group, the floor under any time of this kernel
+    idle = torch.zeros(N, dtype=torch.bool, device=dev)
+    out["idle_device_ms"] = device_ms(
+        lambda: lv_distance_cuda(words, pos, idle, seq, k, 4), 50)
+    return out
 
 
 def device_ms(fn, reps):
-    """Device time per call summed over every kernel fn runs, from a
-    torch.profiler trace (None when the trace holds no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    """Device time per call of a kernel's wrapper: reps calls captured
+    into one CUDA graph, which is replayed once to warm up and once
+    between two CUDA events.  The kernels run back to back on the card
+    with no host in between, so the time holds for kernels far shorter
+    than a launch from Python takes."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / 1e3 / reps if us else None
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_ms(fn, reps):
+    """Device time per call summed over every kernel fn runs, from
+    torch.profiler traces (for the plain versions, which are many small
+    kernels a call).  A trace can come back with events missing, which
+    only lowers the sum: the largest of PROFILE_TRIES traces is returned
+    (None when none holds device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = 0.0
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.self_device_time_total
+                             for e in prof.key_averages()))
+    return best / 1e3 / reps if best else None
 
 
 # ---------------------------------------------------------------- K2 phase
 
-SW_SHAPES = ((100, 105), (104, 512), (152, 512), (250, 768), (33, 40))
+SW_SHAPES = ((100, 105), (104, 512), (152, 512), (250, 768), (33, 40),
+             # strip and instantiation boundaries, windows narrower than a
+             # group of lanes
+             (128, 140), (129, 140), (256, 300), (257, 300), (100, 5), (7, 3))
 SW_BATCHES = (1, 7, 129, 4096)
+SW_LANES = (16, 1)    # the instantiations the C entry point can force
+SW_WAVE_MAX_LEN = 256
+SW_OPS_PER_CELL = 9
+SW_OPS_PER_CELL_PLAIN_MAX = 12
+SW_PATH_SHAPES = (("x1", True, BATCH, READ_LEN, READ_LEN + 5),
+                  ("pe", False, 4096, 104, 512))
 
 
 def sw_case(rng, snp: bool, B: int, L: int, W: int, full_len=False):
@@ -315,61 +388,164 @@ def sw_case(rng, snp: bool, B: int, L: int, W: int, full_len=False):
             ref_len.astype(np.int32))
 
 
+def sw_lanes_allowed(L: int) -> tuple:
+    """The instantiations that take reads of L bases: the wavefront (16
+    lanes a pair, at most 16 rows a lane) and one thread a pair."""
+    return tuple(g for g in SW_LANES if g == 1 or L <= SW_WAVE_MAX_LEN)
+
+
 def check_sw_case(rng, snp, B, L, W, dev, n_oracle=2):
+    """The chosen and every allowed instantiation against the plain
+    version, a sample against the numpy oracle.  Returns (scores >= 50,
+    the lanes the shape chose)."""
     refs, reads, lens = sw_case(rng, snp, B, L, W)
     t = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens)]
-    got = sw_score_cuda(*t, snp)
     want = sw_score_plain(*t, snp)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        bad = torch.nonzero(got != want)[:5, 0].tolist()
-        raise AssertionError(
-            f"SW kernel != plain, snp={snp} B={B} L={L} W={W}: rows {bad}, "
-            f"kernel {got[bad].tolist()}, plain {want[bad].tolist()}")
+    got = sw_score_cuda(*t, snp)
+    for lanes in (0,) + sw_lanes_allowed(L):
+        out = got if lanes == 0 else sw_score_launch(*t, snp, lanes=lanes)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            bad = torch.nonzero(out != want)[:5, 0].tolist()
+            raise AssertionError(
+                f"SW kernel != plain, snp={snp} B={B} L={L} W={W} lanes="
+                f"{lanes}: rows {bad}, kernel {out[bad].tolist()}, plain "
+                f"{want[bad].tolist()}")
     got = got.cpu().numpy()
     for i in rng.choice(B, min(n_oracle, B), replace=False):
         ref = sw_score_numpy(refs[i, : lens[i]], reads[i], snp)
         if got[i] != ref:
             raise AssertionError(f"SW kernel {got[i]} != numpy oracle {ref}, "
                                  f"snp={snp} B={B} L={L} W={W} row {i}")
-    return int((got >= 50).sum())
+    return int((got >= 50).sum()), SW.build().salt_sw_lanes(L, W)
 
 
 def sw_kernel_phase(dev, ops_per_s):
     """K2 against its plain version (and the numpy oracle) on the card.
-    Returns (max_abs_err, {shape name: timings and bound}); any
-    disagreement raises, so the error returned is 0."""
+    Returns (max_abs_err, {shape name: timings and bound}, timings of the
+    long-read instantiation); any disagreement raises, so the error
+    returned is 0."""
     rng = np.random.default_rng(SEED + 1)
     for snp in (True, False):
         for L, W in SW_SHAPES:
-            high = [check_sw_case(rng, snp, B, L, W, dev) for B in SW_BATCHES]
+            done = [check_sw_case(rng, snp, B, L, W, dev) for B in SW_BATCHES]
             print(f"[kernel] sw {'snp  ' if snp else 'plain'} L={L:3d} W={W:3d} "
-                  f"B={SW_BATCHES}: equal ({sum(high)} scores >= 50)", flush=True)
-    high = check_sw_case(rng, True, 64, 2047, 2056, dev, n_oracle=1)
-    print(f"[kernel] sw snp   L=2047 W=2056 B=64: equal ({high} scores >= 50)",
-          flush=True)
-    times = {}
-    for name, snp, B, L, W in (("x1", True, BATCH, READ_LEN, READ_LEN + 5),
-                               ("pe", False, 4096, 104, 512)):
-        times[name] = time_sw_kernel(rng, snp, B, L, W, dev, ops_per_s)
-    return 0, times
+                  f"B={SW_BATCHES}: equal with lanes {[c for _, c in done]} "
+                  f"chosen and {sw_lanes_allowed(L)} forced "
+                  f"({sum(h for h, _ in done)} scores >= 50)", flush=True)
+    high, lanes = check_sw_case(rng, True, 64, 2047, 2056, dev, n_oracle=1)
+    print(f"[kernel] sw snp   L=2047 W=2056 B=64: equal with lanes {lanes} "
+          f"({high} scores >= 50)", flush=True)
+    times = {name: time_sw_kernel(rng, snp, B, L, W, dev, ops_per_s)
+             for name, snp, B, L, W in SW_PATH_SHAPES}
+    return 0, times, time_sw_long(rng, dev, ops_per_s)
+
+
+def sw_bound(lens, B, L, W, ops_per_s):
+    """K2's bound: each pair's W + L code bytes, length and score once,
+    and ref_len x L cells at 9 int32 operations a cell, what the function
+    needs on a card with fused add-max and three-way max-with-zero
+    (Hopper's DPX): E a subtraction and an add-max, F the same, the score
+    a test and a select, the diagonal's addition, H one three-way maximum,
+    the best one maximum.  `bound_ms_12ops` counts the 12 that the cell
+    takes with two-operand maxima only, the figure kept in earlier
+    records."""
+    cells = float(lens.astype(np.int64).sum()) * L
+    n_bytes = B * (W + L + 4 + 4)
+    out = bound(n_bytes, SW_OPS_PER_CELL * cells, ops_per_s)
+    out["bound_ms_12ops"] = bound(
+        n_bytes, SW_OPS_PER_CELL_PLAIN_MAX * cells, ops_per_s)["bound_ms"]
+    return out
 
 
 def time_sw_kernel(rng, snp, B, L, W, dev, ops_per_s):
-    """Times of the SW kernel and of its plain version at (B, L, W) with
-    full windows, and the kernel's bound: each pair's W + L code bytes,
-    length and score once, and ref_len x L cells at 12 int32 operations a
-    cell (two subtractions and a maximum each for E and F, the score's
-    test and select, an addition, three maxima for H and one for the
-    best)."""
+    """Times at (B, L, W) with full windows: the plain version and the
+    instantiation the shape chooses (time_turns); that instantiation
+    against the one-thread-per-pair kernel, the design before the
+    wavefront, in turns old, new, new, old on the host clock and by device
+    time; and the bound."""
     refs, reads, lens = sw_case(rng, snp, B, L, W, full_len=True)
     t = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens)]
-    n_ops = 12.0 * float(lens.astype(np.int64).sum()) * L
-    n_bytes = B * (W + L + 4 + 4)
+    chosen = SW.build().salt_sw_lanes(L, W)
+    want = sw_score_plain(*t, snp)
+
+    def forced(lanes):
+        return lambda: sw_score_launch(*t, snp, lanes=lanes)
+
+    for lanes in sw_lanes_allowed(L):
+        if not torch.equal(forced(lanes)(), want):
+            raise AssertionError(f"SW kernel with lanes={lanes} != plain at the "
+                                 f"path shape B={B} L={L} W={W}")
     out = time_turns(lambda: sw_score_cuda(*t, snp),
                      lambda: sw_score_plain(*t, snp), plain_reps=3)
-    return {**out, **bound(n_bytes, n_ops, ops_per_s),
-            "shape": {"B": B, "L": L, "W": W, "snp_mode": snp}}
+    old, new = forced(1), forced(chosen)
+    turns = [timed(old, 20), timed(new, 50), timed(new, 50), timed(old, 20)]
+    dev_turns = [device_ms(old, 20), device_ms(new, 50), device_ms(new, 50),
+                 device_ms(old, 20)]
+    out.update(sw_bound(lens, B, L, W, ops_per_s))
+    out.update({
+        "shape": {"B": B, "L": L, "W": W, "snp_mode": snp},
+        "lanes": chosen, "old_new_new_old_ms": turns,
+        "old_new_new_old_device_ms": dev_turns,
+        "earlier_ms": (dev_turns[0] + dev_turns[3]) / 2})
+    if not max(turns[1:3]) < min(turns[0], turns[3]) or \
+            not max(dev_turns[1:3]) < min(dev_turns[0], dev_turns[3]):
+        raise AssertionError(f"SW kernel at {out['shape']}: lanes={chosen} is "
+                             f"not faster than one thread a pair: host "
+                             f"{turns}, device {dev_turns}")
+    return out
+
+
+def time_sw_long(rng, dev, ops_per_s, B=64, L=2047, W=2056):
+    """Device and host-clock time of the long-read instantiation (one
+    thread a pair) at the longest read the aligner takes, and its bound."""
+    refs, reads, lens = sw_case(rng, True, B, L, W, full_len=True)
+    t = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens)]
+
+    def kern():
+        return sw_score_cuda(*t, True)
+
+    return {"shape": {"B": B, "L": L, "W": W, "snp_mode": True},
+            "lanes": SW.build().salt_sw_lanes(L, W),
+            "ms": timed(kern, 3), "device_ms": device_ms(kern, 3),
+            **sw_bound(lens, B, L, W, ops_per_s)}
+
+
+def time_sw_path_batches(sent, dev, ops_per_s):
+    """K2 at the batches the paths really sent.  `sent` maps a path to
+    the (snp_mode, B, L, W) of each launch of its timed run; for every
+    (path, mode, L, W) the median B is timed with full windows: the
+    chosen instantiation and one thread a pair, device time in turns old,
+    new, new, old, and the bound."""
+    rng = np.random.default_rng(SEED + 3)
+    out = []
+    for path, calls in sent.items():
+        for snp, L, W in sorted({(c[0], c[2], c[3]) for c in calls}):
+            sizes = sorted(c[1] for c in calls if (c[0], c[2], c[3]) == (snp, L, W))
+            B = sizes[len(sizes) // 2]
+            refs, reads, lens = sw_case(rng, snp, B, L, W, full_len=True)
+            t = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens)]
+            chosen = SW.build().salt_sw_lanes(L, W)
+            want = sw_score_plain(*t, snp)
+            for lanes in (chosen, 1):
+                if not torch.equal(sw_score_launch(*t, snp, lanes=lanes), want):
+                    raise AssertionError(f"SW kernel with lanes={lanes} != plain "
+                                         f"at the {path} batch B={B} L={L} W={W}")
+            turns = [device_ms(lambda: sw_score_launch(*t, snp, lanes=n), reps)
+                     for n, reps in ((1, 20), (chosen, 50), (chosen, 50), (1, 20))]
+            rec = {"path": path, "batches_sent": sizes, "lanes": chosen,
+                   "shape": {"B": B, "L": L, "W": W, "snp_mode": snp},
+                   "device_ms": (turns[1] + turns[2]) / 2,
+                   "earlier_ms": (turns[0] + turns[3]) / 2,
+                   "old_new_new_old_device_ms": turns,
+                   **sw_bound(lens, B, L, W, ops_per_s)}
+            print(f"[kernel] sw on the {path} path: launches of B={sizes} pairs "
+                  f"(L={L}, W={W}, {'snp' if snp else 'plain'} mode); at "
+                  f"B={B}: lanes {chosen}, device ms old, new, new, old {turns}; "
+                  f"bound {rec['bound_ms']:.6f} ms ({rec['bound_ms_12ops']:.6f} "
+                  f"at 12 operations a cell)", flush=True)
+            out.append(rec)
+    return out
 
 
 # ---------------------------------------------------------------- slices
@@ -463,6 +639,19 @@ def accuracy(sam, truth):
     return mapped / len(sam), ok / max(mapped, 1)
 
 
+def note_sw_batches(al, sent):
+    """Wraps the aligner's K2 call so that each launch appends its
+    (snp_mode, B, L, W) to the list `sent`."""
+    score = al._sw_scores
+
+    def noting(refs, reads, lens, snp_mode):
+        sent.append((bool(snp_mode), refs.shape[0], reads.shape[1],
+                     refs.shape[1]))
+        return score(refs, reads, lens, snp_mode)
+
+    al._sw_scores = noting
+
+
 def reset_counts():
     metrics_reset()
     for kern in KERNELS.values():
@@ -493,15 +682,18 @@ def assert_same_sam(tag, what, want, got):
                              f"{diff[:1]}:\n{want[diff[0]]}\n{got[diff[0]]}")
 
 
-def se_phase(tag, idx, recs, truth, dev, need, n_timed, **extra):
+def se_phase(tag, idx, recs, truth, dev, need, n_timed, sent=None, **extra):
     """One warm-up and n_timed timed batches of SEAligner on the card;
     accuracy bounds; CPU rerun of the first reads.  Returns the timed
-    run's launch counts and the aligner."""
+    run's launch counts and the aligner; `sent` (a list) receives the
+    shape of every K2 launch of the timed run."""
     opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
                      print_xa_cigar=True, batch_size=BATCH, gap_batch=128,
                      **extra)
     t0 = time.perf_counter()
     al = SEAligner(idx, opts, device=dev)
+    if sent is not None:
+        note_sw_batches(al, sent)
     torch.cuda.synchronize()
     print(f"[{tag}] index to {dev}: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
@@ -510,6 +702,8 @@ def se_phase(tag, idx, recs, truth, dev, need, n_timed, **extra):
 
     timed_recs = recs[BATCH : BATCH * (1 + n_timed)]
     reset_counts()
+    if sent is not None:
+        sent.clear()
     t0 = time.perf_counter()
     out = al.align_records(timed_recs)
     torch.cuda.synchronize()
@@ -530,9 +724,9 @@ def se_phase(tag, idx, recs, truth, dev, need, n_timed, **extra):
     return counts, al, opts, warm
 
 
-def x1_phase(idx, recs, truth, dev):
+def x1_phase(idx, recs, truth, dev, sent):
     counts, _al, opts, warm = se_phase(
-        "x1", idx, recs, truth, dev, ("sw_score",), N_TIMED_SW,
+        "x1", idx, recs, truth, dev, ("sw_score",), N_TIMED_SW, sent,
         extend_algo="sw", device_sw="auto")
     off = SEAligner(idx, dataclasses.replace(opts, device_sw="off"), device=dev)
     assert_same_sam("x1", f"pre-filter off, {CPU_CHECK} reads on the card",
@@ -540,33 +734,27 @@ def x1_phase(idx, recs, truth, dev):
     return counts
 
 
-def pe_phase(idx, hap, dev):
+def pe_phase(idx, hap, dev, sent):
     rng = np.random.default_rng(SEED + 2)
     n = PE_CHUNK * (1 + N_TIMED_SW)
     r1, r2, truth = simulate_pairs(hap, n, READ_LEN, rng)
     kw = dict(l_overlap=1, max_locate=500, print_nm_md=True,
               print_xa_cigar=True, batch_size=BATCH, gap_batch=128)
     al = PEAligner(idx, PEOptions(device_sw="auto", **kw), device=dev)
-    seen = set()
-    score = al._se._sw_scores
-
-    def noting_mode(refs, reads, lens, snp_mode):
-        seen.add(snp_mode)
-        return score(refs, reads, lens, snp_mode)
-
-    al._se._sw_scores = noting_mode
+    note_sw_batches(al._se, sent)
     t0 = time.perf_counter()
     warm = al.align_pairs(r1[:PE_CHUNK], r2[:PE_CHUNK])
     print(f"[pe] warm-up chunk: {time.perf_counter() - t0:.2f} s", flush=True)
 
     reset_counts()
-    seen.clear()
+    sent.clear()
     t0 = time.perf_counter()
     out = al.align_pairs(r1[PE_CHUNK:], r2[PE_CHUNK:])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = report_run("pe", len(out) // 2, "pairs", dt,
                         ("lv_distance", "sw_score"))
+    seen = {c[0] for c in sent}
     if seen != {True, False}:
         raise AssertionError(f"pe: SW kernel ran in modes {seen}, expected the "
                              "SNP mode (pair2) and the plain mode (singleton)")
@@ -642,35 +830,89 @@ def build_all():
     print(f"[build] all three side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
     for kern in (LV, SW):
-        for line in kern.build_log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling")):
-                print(f"[build] {kern.source.name}: {line.strip()}", flush=True)
+        report_ptxas(kern)
+
+
+def report_ptxas(kern):
+    """Prints what `-Xptxas -v` said of every instantiation of a kernel
+    (registers, stack frame, spills), one line each, and how often the
+    library's machine code uses Hopper's DPX instructions (where the
+    toolkit has cuobjdump).  A rebuilt library only: a library that was up
+    to date has no log."""
+    name, frame = "?", []
+    n = worst = 0
+    for line in kern.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            base = re.search(r"\d+(sw_\w+?_kernel|lv_\w+?_kernel)I", m.group(1))
+            args = re.findall(r"L[bi](\d+)E", m.group(1))
+            name = f"{base.group(1) if base else m.group(1)}<{', '.join(args)}>"
+        elif "bytes stack frame" in line:
+            frame = re.findall(r"(\d+) bytes", line)
+            worst += sum(int(x) for x in frame)
+        elif "registers" in line:
+            used = re.search(r"Used (\d+) registers", line)
+            n += 1
+            print(f"[build] {name}: {used.group(1) if used else '?'} registers, "
+                  f"{'/'.join(frame)} bytes stack/spill stores/spill loads",
+                  flush=True)
+    print(f"[build] {kern.source.name}: {n} instantiations, {worst} bytes of "
+          f"stack frame and spills in all", flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", str(kern.library)],
+                              capture_output=True, text=True, timeout=300).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass))
+                  for op in ("VIADDMNMX", "VIMNMX3", "VIMNMX", "SHFL", "LDS",
+                             "LDL", "STL")}
+        print(f"[build] {kern.source.name}: instructions in the machine code: "
+              f"{counts}", flush=True)
+
+
+SHAPE_KEYS = ("path", "batches_sent", "shape", "ms", "plain_ms", "bound_ms",
+              "bound_ms_12ops", "bound_by", "device_ms", "plain_device_ms",
+              "profiler_ms", "earlier_ms", "setup_device_ms", "idle_device_ms",
+              "lanes", "old_new_new_old_ms", "old_new_new_old_device_ms")
 
 
 def kernel_record(name, kern, replaces, launches, max_err, t, others=()):
+    """One kernel's entry of the `kernels` line.  `earlier_ms` is the
+    device time, in this run, of K2's design before the wavefront (the
+    one-thread-per-pair kernel) at the same shape; `lanes` the K2
+    instantiation that ran; the entries with `path` are K2 at the batches
+    that path sent in its timed run."""
     rec = {"name": name, "route": "cuda",
            "source": f"salt_tpu_torch/csrc/{kern.source.name}",
            "replaces": replaces, "launches": sum(launches.values()),
            "launches_by_path": launches, "max_abs_err": max_err,
            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-           "bound_by": t["bound_by"], "library_ms": None,
-           "device_ms": t["device_ms"], "plain_device_ms": t["plain_device_ms"]}
-    if "shape" in t:
-        rec["shape"] = t["shape"]
+           "bound_by": t["bound_by"], "library_ms": None}
+    rec.update({k: t[k] for k in SHAPE_KEYS if k in t and k not in rec})
     if others:
-        rec["other_shapes"] = [
-            {k: o[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "device_ms", "plain_device_ms")} for o in others]
+        rec["other_shapes"] = [{k: o[k] for k in SHAPE_KEYS if k in o}
+                               for o in others]
     return rec
 
 
 def print_times(tag, t):
     print(f"[kernel] {tag} per call, host clock: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms (turns plain, kernel, kernel, plain: "
-          f"{t['turns_ms']}); device time (profiler): kernel {t['device_ms']} "
-          f"ms, plain {t['plain_device_ms']} ms; bound {t['bound_ms']:.6f} ms by "
+          f"{t['turns_ms']}); device time: kernel {t['device_ms']} ms (CUDA "
+          f"graph; {t['profiler_ms']} ms by the profiler), plain "
+          f"{t['plain_device_ms']} ms (profiler); bound {t['bound_ms']:.6f} ms by "
           f"{t['bound_by']} ({t['bytes']} bytes, {t['operations']:.0f} int32 "
           f"operations)", flush=True)
+    if "setup_device_ms" in t:
+        print(f"[kernel] {tag}: device time on reads that match exactly "
+              f"(set-up and first run only) {t['setup_device_ms']} ms, with "
+              f"every candidate inactive {t['idle_device_ms']} ms", flush=True)
+    if "lanes" in t:
+        print(f"[kernel] {tag}: lanes a pair chosen {t['lanes']}; turns old (one "
+              f"thread a pair), new, new, old: host clock "
+              f"{t['old_new_new_old_ms']} ms, device "
+              f"{t['old_new_new_old_device_ms']} ms (design before: "
+              f"{t['earlier_ms']} ms); bound at 12 operations a cell "
+              f"{t['bound_ms_12ops']:.6f} ms", flush=True)
 
 
 def main() -> int:
@@ -691,9 +933,12 @@ def main() -> int:
     lv_err, lv_times = kernel_phase(dev)
     for N, t in lv_times.items():
         print_times(f"lv N={N} L={READ_LEN} k=10", t)
-    sw_err, sw_times = sw_kernel_phase(dev, ops_per_s)
+    sw_err, sw_times, sw_long = sw_kernel_phase(dev, ops_per_s)
     for t in sw_times.values():
         print_times(f"sw {t['shape']}", t)
+    print(f"[kernel] sw {sw_long['shape']}: lanes {sw_long['lanes']}, host clock "
+          f"{sw_long['ms']:.3f} ms, device {sw_long['device_ms']} ms; bound "
+          f"{sw_long['bound_ms']:.6f} ms by {sw_long['bound_by']}", flush=True)
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -713,8 +958,10 @@ def main() -> int:
     note("se_lv", counts)
     busy_share(al, recs[BATCH : 2 * BATCH])
     del al
-    note("se_x1", x1_phase(idx, recs, truth, dev))
-    note("pe", pe_phase(idx, hap, dev))
+    sent = {"se_x1": [], "pe": []}
+    note("se_x1", x1_phase(idx, recs, truth, dev, sent["se_x1"]))
+    note("pe", pe_phase(idx, hap, dev, sent["pe"]))
+    sw_sent = time_sw_path_batches(sent, dev, ops_per_s)
     torch.cuda.synchronize()
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -725,7 +972,7 @@ def main() -> int:
                             shape={"N": 16384, "L": READ_LEN, "k": 10})]),
         kernel_record("sw_score", SW, "salt_tpu/ops/sw_pallas.py:38,101,278",
                       launches["sw_score"], sw_err, sw_times["x1"],
-                      [sw_times["pe"]]),
+                      [sw_times["pe"], sw_long] + sw_sent),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

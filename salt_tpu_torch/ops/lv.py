@@ -61,6 +61,15 @@ def lv_distance_batch(
                              pat_precoded, text_words)
 
 
+def window_nibbles(words: torch.Tensor, pos: torch.Tensor, n: int) -> torch.Tensor:
+    """The n reference nibbles from each position of `pos`, (N, n) int64:
+    positions are uint32 and wrap, the word index is clamped to the last
+    word (ops/uint.py:take_u32), the nibble offset comes from the
+    unclamped position."""
+    t = ((pos & U32)[:, None] + torch.arange(n, device=pos.device)) & U32
+    return (take_u32(words, t >> 3) >> ((t & 7) * 4)) & 15
+
+
 def lv_distance_plain(
     mixref: torch.Tensor,  # uint8 [l_mref], or uint32-bit words (text_words)
     pos: torch.Tensor,     # int64 (N,) uint32 candidate start positions
@@ -86,11 +95,10 @@ def lv_distance_plain(
     dev = seq.device
 
     base = torch.where(active, pos, 0)
-    tidx = ((base & U32)[:, None] + torch.arange(TL, device=dev)) & U32
     if text_words:
-        w = take_u32(mixref, tidx >> 3)
-        text = ((w >> ((tidx & 7) * 4)) & 15).to(torch.uint8)
+        text = window_nibbles(mixref, base, TL).to(torch.uint8)
     else:
+        tidx = ((base & U32)[:, None] + torch.arange(TL, device=dev)) & U32
         text = take(mixref, as_i32(tidx)).to(torch.uint8)
     if pat_precoded:
         pat = seq.to(torch.uint8)

@@ -12,8 +12,9 @@ import torch
 from .cuda_build import MAX_READ_LEN, CudaKernel, check_tensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SW = CudaKernel("sw.cu", {"salt_sw_score": [
-    _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]})
+SW = CudaKernel("sw.cu", {
+    "salt_sw_score": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I],
+    "salt_sw_lanes": [_I, _I]})
 # H and E are held as 16-bit halves: -gap_open <= E, H <= MAX_READ_LEN
 MAX_GAP_OPEN = 16384
 
@@ -38,6 +39,17 @@ def sw_score_cuda(
     """The kernel's launch: int32 (B,) best local scores.  Raises on
     tensors the kernel does not take and on a refused launch.  Does not
     synchronize: reading the result back does."""
+    return sw_score_launch(refs, reads, ref_len, snp_mode, gap_open,
+                           gap_extend, lanes=0)
+
+
+def sw_score_launch(refs, reads, ref_len, snp_mode, gap_open=3, gap_extend=1,
+                    lanes=0) -> torch.Tensor:
+    """`sw_score_cuda` with the instantiation named.  lanes=0 lets the
+    shape choose (`salt_sw_lanes(L, W)` in csrc/sw.cu: what the package
+    runs); 16 forces the wavefront kernel (reads of up to 256 bases) and
+    1 the one-thread-per-pair kernel.  Measurements use the forced forms
+    to time both on one shape."""
     dev = refs.device
     if dev.type != "cuda":
         raise ValueError("sw_score_cuda takes CUDA tensors")
@@ -62,6 +74,7 @@ def sw_score_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.salt_sw_score(
             refs.data_ptr(), reads.data_ptr(), ref_len.data_ptr(), B, W, L,
-            int(bool(snp_mode)), gap_open, gap_extend, out.data_ptr(), stream)
+            int(bool(snp_mode)), gap_open, gap_extend, out.data_ptr(), stream,
+            lanes)
     SW.check(rc)
     return out
