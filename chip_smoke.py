@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the two kernels (csrc/lv.cu, csrc/sw.cu) and the
-   native host library from source, side by side.
+   versions, and builds the two kernel sources (csrc/lv.cu with both forms
+   of K1, csrc/sw.cu) and the native host library, side by side.
 2. K1 kernel phase: the CUDA LV kernel against its plain PyTorch version
    on the card, exact equality, over k in {0, 3, 7, 8, 10, 15, 16, 30}
    (every group size of the kernel and the boundaries between them), L in
@@ -13,7 +13,13 @@
    >= 2^31 in a reference of more than 2^28 words.  Times both at the
    aligner's shapes, and the kernel on reads that match exactly (its
    set-up and first run alone) and on inactive candidates (the launch
-   alone).
+   alone).  K1's byte form (polish's: a byte reference, precoded match
+   codes) against its plain version, exact equality, over k in {0, 3, 7,
+   13, 15, 16, 30}, L in {70, 100, 151, 250} and N in {1, 7, 129, 4,096}:
+   polish's seven codes, planted substitutions and indels up to and past
+   k, inactive rows, windows at position 0, ending at the last byte, cut
+   by the end and at positions >= 2^31; timed at N = 4,096 and 8,192,
+   L = 100, k = 13, window_pad = 0.
 3. K2 kernel phase: the CUDA Smith-Waterman score kernel against its
    plain PyTorch version on the card, exact equality, in SNP and plain
    mode over (L, W) in {(100, 105), (104, 512), (152, 512), (250, 768),
@@ -36,6 +42,15 @@
    just before, checks that its kernels ran, the mapped and correct
    shares, and that a prefix of the reads gives byte-identical SAM on the
    CPU (and, for the SW paths, on the card with the pre-filter off).
+5. Sampled suffix-array mode on the same index (sa_intv = 8): the LF-walk
+   resolver on 2 x 65,536 random ranks against the host tables, with the
+   fused and with standalone rank planes; SE with Landau-Vishkin extension
+   on the same reads, SAM byte-identical to full mode; one paired-end
+   chunk likewise; the device bytes of the locate tables in both modes.
+6. Polish on the card over the SE and the PE SAM of phase 4 (Landau-Vishkin
+   scoring through K1's byte form), byte-identical to the same call on the
+   CPU; SSW scoring (-s) on 512 records; then K1's byte form timed at the
+   largest batch that path sent.
 
 Every phase raises on failure.  The last two lines of stdout are the
 kernels' JSON record and {"ok": true, "device": {...}}.  Exits non-zero,
@@ -43,12 +58,14 @@ printing no result, when no CUDA device is available.
 """
 
 import dataclasses
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -58,13 +75,21 @@ import torch
 from salt_tpu_torch.index.build import build_index_from_data
 from salt_tpu_torch.io.fasta import SeqRecord
 from salt_tpu_torch.io.snp import SnpBlock
+from salt_tpu_torch.ops.locate import resolve_sampled
 from salt_tpu_torch.ops.lv import lv_distance_plain, window_nibbles
-from salt_tpu_torch.ops.lv_cuda import LV, lv_distance_cuda
+from salt_tpu_torch.ops.lv_cuda import (
+    LV,
+    LV_BYTES,
+    lv_distance_bytes_cuda,
+    lv_distance_cuda,
+)
+from salt_tpu_torch.ops.rank import build_rank_index
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
 from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda, sw_score_launch
 from salt_tpu_torch.pipeline.device_index import pack_nibbles
 from salt_tpu_torch.pipeline.engine import SEAligner, SEOptions
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
+from salt_tpu_torch.polish import polish as polish_mod
 from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.utils.native import load_native
 
@@ -88,7 +113,15 @@ LV_KS = (0, 3, 7, 8, 10, 15, 16, 30)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 int32 lanes, one op a clock
 PROFILE_TRIES = 2
-KERNELS = {"lv_distance": LV, "sw_score": SW}
+KERNELS = {"lv_distance": LV, "lv_distance_bytes": LV_BYTES, "sw_score": SW}
+# K1's byte form: polish's match codes (bases, N, 3 - N of a reverse
+# strand read, any stray byte) and its call (k = 13, no window padding)
+POLISH_CODES = np.array([1, 2, 4, 8, 16, 32, 64], np.uint8)
+LVB_KS = (0, 3, 7, 13, 15, 16, 30)
+LVB_BATCHES = (1, 7, 129, 4096)
+POLISH_K = 13
+N_RESOLVE = 65536    # ranks a family in the sampled resolver check
+SW_POLISH = 512      # records of the -s polish run
 
 
 def card_line() -> str:
@@ -284,6 +317,115 @@ def time_kernel(words, N, rng, dev, ops_per_s, k=10, L=READ_LEN):
     out["idle_device_ms"] = device_ms(
         lambda: lv_distance_cuda(words, pos, idle, seq, k, 4), 50)
     return out
+
+
+# ---------------------------------------------------------------- K1, bytes
+
+
+def byte_reference(rng, n: int) -> np.ndarray:
+    """n match codes as polish encodes a reference: bases, 1% N, and a few
+    of the two codes that only reads carry."""
+    ref = POLISH_CODES[rng.integers(0, 4, n)]
+    u = rng.random(n)
+    ref[u < 0.01] = 16
+    ref[u > 0.999] = POLISH_CODES[rng.integers(5, 7, int((u > 0.999).sum()))]
+    return ref
+
+
+def byte_case(rng, ref, N, L, max_subs):
+    """(pos, active, pat) for N candidates.  Even rows are copies of their
+    window with 0..max_subs substitutions and, in half of them, a 1-3 byte
+    insertion or deletion; odd rows are unrelated.  The first rows sit at
+    position 0, end at the last byte, are cut by the end of the reference
+    and start at a position >= 2^31 (which reads byte 0 throughout)."""
+    n = len(ref)
+    pos = rng.integers(0, n - L - 8, N).astype(np.int64)
+    edge = [0, n - L, n - L + 5, 2**31 + 11, n - 1, 2**32 - 3]
+    pos[: min(N, len(edge))] = edge[:N]
+    j = np.arange(L)[None, :]
+    kind = rng.integers(0, 4, (N, 1))              # 0 del, 1 ins, 2-3 neither
+    m = rng.integers(1, 4, (N, 1))
+    at = rng.integers(1, max(L - 1, 2), (N, 1))
+    src = pos[:, None] + j + np.where((kind == 0) & (j >= at), m, 0) \
+        - np.where((kind == 1) & (j >= at), m, 0)
+    src &= 0xFFFFFFFF                               # positions are uint32
+    src = np.where(src >= 2**31, 0, np.minimum(src, n - 1))
+    pat = ref[src]
+    fresh = POLISH_CODES[rng.integers(0, 4, (N, L))]
+    pat = np.where((kind == 1) & (j >= at) & (j < at + m), fresh, pat)
+    n_sub = rng.integers(0, max_subs + 1, (N, 1))
+    order = np.argsort(rng.random((N, L)), axis=1)
+    other = POLISH_CODES[(np.log2(pat).astype(np.int64) + 1
+                          + rng.integers(0, 3, (N, L))) % 4]
+    pat = np.where(order < n_sub, other, pat)
+    pat = np.where(np.arange(N)[:, None] % 2 == 0, pat, fresh)
+    stray = rng.random((N, L)) < 0.002
+    pat = np.where(stray, POLISH_CODES[rng.integers(4, 7, (N, L))], pat)
+    active = rng.random(N) < 0.9
+    active[:6] = True
+    return pos, active, pat.astype(np.uint8)
+
+
+def byte_kernel_phase(dev, ops_per_s):
+    """K1's byte form against its plain version on the card.  Returns
+    (max_abs_err, {N: timings and bound})."""
+    rng = np.random.default_rng(SEED + 4)
+    n_ref = 2_000_003                      # the last word of bytes is ragged
+    ref_np = byte_reference(rng, n_ref)
+    ref = torch.from_numpy(ref_np).to(dev)
+    max_err = 0
+    for k in LVB_KS:
+        for L in (70, 100, 151, 250):
+            mid = big = 0
+            for N in LVB_BATCHES:
+                pos, active, pat = (torch.from_numpy(a).to(dev) for a in
+                                    byte_case(rng, ref_np, N, L, k + 3))
+                got = lv_distance_bytes_cuda(ref, pos, active, pat, k, 0)
+                want = lv_distance_plain(ref, pos, active, pat, k, 0,
+                                         pat_precoded=True)
+                torch.cuda.synchronize()
+                if not torch.equal(got.long(), want):
+                    bad = torch.nonzero(got.long() != want)[:5, 0].tolist()
+                    raise AssertionError(
+                        f"LV byte form != plain at k={k} L={L} N={N}: rows {bad}, "
+                        f"kernel {got[bad].tolist()}, plain {want[bad].tolist()}")
+                max_err = max(max_err, int((got.long() - want).abs().max()))
+                mid += int(((want > 0) & (want < 255)).sum())
+                big += int((want == 255).sum())
+            print(f"[kernel] lv bytes k={k:2d} L={L:3d} N={LVB_BATCHES}: equal "
+                  f"({mid} rows with 0 < e < 255, {big} at 255)", flush=True)
+    times = {}
+    for N in (4096, 8192):
+        pos, active, pat = (torch.from_numpy(a).to(dev) for a in
+                            byte_case(rng, ref_np, N, READ_LEN, 4))
+        active[:] = True
+        times[N] = time_byte_kernel(ref, pos, active, pat, ops_per_s)
+    return max_err, times
+
+
+def time_byte_kernel(ref, pos, active, pat, ops_per_s, k=POLISH_K):
+    """Times of K1's byte form and of its plain version on these
+    candidates as polish calls them (window_pad = 0), and the bound.
+    Bytes: each candidate's L window bytes and L read bytes, position,
+    flag and result.  Operations: as for the nibble form, 18 a band cell of
+    the (d' + 1)^2 a candidate of distance d walks, d' = min(d, k), plus
+    L."""
+    N, L = pat.shape
+
+    def kern():
+        return lv_distance_bytes_cuda(ref, pos, active, pat, k, 0)
+
+    def plain():
+        return lv_distance_plain(ref, pos, active, pat, k, 0, pat_precoded=True)
+
+    d = kern().long()
+    if not torch.equal(d, plain()):
+        raise AssertionError(f"LV byte form != plain at the timed N={N} L={L}")
+    d = torch.clamp(d, max=k)
+    n_ops = float((18 * (d + 1) ** 2 + L).sum())
+    n_bytes = N * (2 * L + 8 + 1 + 4)
+    return {**time_turns(kern, plain), **bound(n_bytes, n_ops, ops_per_s),
+            "shape": {"N": N, "L": L, "k": k, "window_pad": 0}}
 
 
 def device_ms(fn, reps):
@@ -682,20 +824,27 @@ def assert_same_sam(tag, what, want, got):
                              f"{diff[:1]}:\n{want[diff[0]]}\n{got[diff[0]]}")
 
 
-def se_phase(tag, idx, recs, truth, dev, need, n_timed, sent=None, **extra):
+def se_phase(tag, idx, recs, truth, dev, need, n_timed, sent=None,
+             same_as=None, **extra):
     """One warm-up and n_timed timed batches of SEAligner on the card;
-    accuracy bounds; CPU rerun of the first reads.  Returns the timed
-    run's launch counts and the aligner; `sent` (a list) receives the
-    shape of every K2 launch of the timed run."""
+    accuracy bounds; CPU rerun of the first reads or, with `same_as` (the
+    warm-up and timed SAM of another mode on the same reads), equality
+    with those.  Returns the timed run's launch counts, the aligner, its
+    options and the two SAM lists; `sent` (a list) receives the shape of
+    every K2 launch of the timed run."""
+    torch.cuda.reset_peak_memory_stats()
     opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
                      print_xa_cigar=True, batch_size=BATCH, gap_batch=128,
                      **extra)
     t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
     al = SEAligner(idx, opts, device=dev)
     if sent is not None:
         note_sw_batches(al, sent)
     torch.cuda.synchronize()
-    print(f"[{tag}] index to {dev}: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[{tag}] index to {dev}: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() - held} bytes of device memory",
+          flush=True)
     t0 = time.perf_counter()
     warm = al.align_records(recs[:BATCH])
     print(f"[{tag}] warm-up batch: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -716,16 +865,22 @@ def se_phase(tag, idx, recs, truth, dev, need, n_timed, sent=None, **extra):
           f"of mapped, {n_gap} gapped cigars", flush=True)
     if mapped < 0.9 or correct < 0.9 or n_gap == 0:
         raise AssertionError(f"{tag}: alignment accuracy out of bounds")
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes", flush=True)
 
+    if same_as is not None:
+        assert_same_sam(tag, "warm-up batch against full mode", same_as[0], warm)
+        assert_same_sam(tag, "timed batches against full mode", same_as[1], out)
+        return counts, al, opts, warm, out
     t0 = time.perf_counter()
     cpu = SEAligner(idx, opts, device="cpu").align_records(recs[:CPU_CHECK])
     assert_same_sam(tag, f"CPU rerun of {CPU_CHECK} reads "
                     f"({time.perf_counter() - t0:.1f} s)", cpu, warm[:CPU_CHECK])
-    return counts, al, opts, warm
+    return counts, al, opts, warm, out
 
 
 def x1_phase(idx, recs, truth, dev, sent):
-    counts, _al, opts, warm = se_phase(
+    counts, _al, opts, warm, _out = se_phase(
         "x1", idx, recs, truth, dev, ("sw_score",), N_TIMED_SW, sent,
         extend_algo="sw", device_sw="auto")
     off = SEAligner(idx, dataclasses.replace(opts, device_sw="off"), device=dev)
@@ -786,7 +941,7 @@ def pe_phase(idx, hap, dev, sent):
     assert_same_sam("pe", f"CPU rerun of {PE_CPU_CHECK} pairs "
                     f"({time.perf_counter() - t0:.1f} s)", cpu,
                     warm[: 2 * PE_CPU_CHECK])
-    return counts
+    return counts, (r1[:PE_CHUNK], r2[:PE_CHUNK], kw), warm, out
 
 
 def busy_share(al, recs):
@@ -809,12 +964,191 @@ def busy_share(al, recs):
               f"{e.count:6d}x  {e.key[:70]}", flush=True)
 
 
+# ---------------------------------------------------------------- sampled mode
+
+
+def resolver_check(idx, al, dev):
+    """resolve_sampled on N_RESOLVE random ranks a family (rank 0 left
+    out: no seed interval reaches it) against the host tables, with the
+    aligner's fused rank planes and with standalone ones."""
+    rng = np.random.default_rng(SEED + 5)
+    rc = rng.integers(1, len(idx.csa), N_RESOLVE)
+    rr = rng.integers(1, len(idx.r_coord), N_RESOLVE)
+    n_sharp = al.sampled.sharp_hi - al.sampled.sharp_lo
+    rr[:64] = al.sampled.sharp_lo + rng.integers(0, n_sharp, 64)   # on a '#'
+    want = torch.from_numpy(np.concatenate([idx.csa[rc], idx.r_coord[rr]])
+                            .astype(np.int64)).to(dev)
+    rank = torch.from_numpy(np.concatenate([rc, rr])).to(dev)
+    is_r = torch.arange(2 * N_RESOLVE, device=dev) >= N_RESOLVE
+    active = torch.ones(2 * N_RESOLVE, dtype=torch.bool, device=dev)
+    solo = (build_rank_index(idx.cbwt, np.append(idx.c_l2, 0)).to(dev),
+            build_rank_index(idx.rbwt, np.append(idx.r_cumfreq, 0)).to(dev))
+    for name, (ri_c, ri_r) in (("fused", (al.dix.ri_c, al.dix.ri_r)),
+                               ("standalone", solo)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = resolve_sampled(al.sampled, ri_c, ri_r, rank, is_r, active)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_bad = int((got != want).sum())
+        print(f"[sampled] resolve_sampled, {name} planes: {n_bad} of "
+              f"{2 * N_RESOLVE} ranks differ from csa / r_coord "
+              f"({dt * 1e3:.2f} ms)", flush=True)
+        if n_bad:
+            bad = torch.nonzero(got != want)[:5, 0].tolist()
+            raise AssertionError(
+                f"resolve_sampled ({name}) at lanes {bad}: ranks "
+                f"{rank[bad].tolist()}, got {got[bad].tolist()}, want "
+                f"{want[bad].tolist()}")
+    if int((want[N_RESOLVE : N_RESOLVE + 64] != 0xFFFFFFFF).sum()):
+        raise AssertionError("the ranks planted on a '#' are not on one")
+
+
+def mode_turns(idx, al_sampled, opts, recs, dev):
+    """The timed reads through full mode, sampled mode, sampled mode and
+    full mode in turns, on warm aligners within one process: the two
+    modes' rates are compared here, not across phases that ran minutes
+    apart on a shared host."""
+    al_full = SEAligner(idx, dataclasses.replace(opts, sa_mode="full"),
+                        device=dev)
+    timed_recs = recs[BATCH : BATCH * (1 + N_TIMED)]
+    al_full.align_records(timed_recs[:BATCH])
+    rates = []
+    for name, al in (("full", al_full), ("sampled", al_sampled),
+                     ("sampled", al_sampled), ("full", al_full)):
+        metrics_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        al.align_records(timed_recs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stages = metrics()
+        rates.append(len(timed_recs) / dt)
+        print(f"[sampled] turn {name:<7}: {len(timed_recs)} reads in {dt:.3f} s = "
+              f"{rates[-1]:.1f} reads/s; device.dispatch "
+              f"{stages['device.dispatch'][0]:.3f} s, host.finalize "
+              f"{stages['host.finalize'][0]:.3f} s", flush=True)
+    print(f"[sampled] sampled over full mode, means of the turns: "
+          f"{(rates[1] + rates[2]) / (rates[0] + rates[3]):.4f}", flush=True)
+
+
+def sampled_phase(idx, recs, truth, dev, full_bytes, se_sam, pe_reads, pe_sam):
+    """Sampled SA mode on the index of the other phases: the resolver
+    check, SE LV on the same reads and one PE chunk, each SAM equal to
+    full mode's; the two modes' SE rates in turns.  Returns {path: launch
+    counts}."""
+    counts, al, opts, _warm, _out = se_phase(
+        "sampled", idx, recs, truth, dev, ("lv_distance",), N_TIMED,
+        same_as=se_sam, sa_mode="sampled", sa_intv=8)
+    if al.dix.sa_cat.numel() != 2:
+        raise AssertionError("sampled mode holds a full sa_cat")
+    print(f"[sampled] locate tables on the device: full mode sa_cat "
+          f"{full_bytes} bytes; sampled mode sel_cat + samples_cat + syms_cat "
+          f"{al.sampled.table_bytes()} bytes (sa_intv = {al.sampled.intv}), "
+          f"{al.sampled.table_bytes() / full_bytes:.4f} of it; rank planes "
+          f"(one tensor for both families) "
+          f"{al.dix.ri_c.bc.numel() * al.dix.ri_c.bc.element_size()} bytes",
+          flush=True)
+    resolver_check(idx, al, dev)
+    mode_turns(idx, al, opts, recs, dev)
+    del al
+    torch.cuda.empty_cache()
+
+    r1, r2, kw = pe_reads
+    pe = PEAligner(idx, PEOptions(device_sw="auto", sa_mode="sampled", **kw),
+                   device=dev)
+    assert_same_sam("sampled pe", "first chunk against full mode", pe_sam,
+                    pe.align_pairs(r1, r2))
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pe.align_pairs(r1, r2)
+    torch.cuda.synchronize()
+    pe_counts = report_run("sampled pe", len(out) // 2, "pairs",
+                           time.perf_counter() - t0, ("lv_distance", "sw_score"))
+    assert_same_sam("sampled pe", "the same chunk again", pe_sam, out)
+    return {"se_sampled": counts, "pe_sampled": pe_counts}
+
+
+# ---------------------------------------------------------------- polish
+
+
+def polish_phase(idx, se_sam, pe_sam, dev):
+    """polish_main on the card over the SE and the PE SAM of the aligner
+    phases, LV scoring through K1's byte form: output equal to the same
+    call on the CPU; -s (host SSW) on SW_POLISH records.  Returns ({path:
+    launch counts}, the arguments of the largest launch of the byte form)."""
+    sent = []
+    lv = polish_mod.lv_distance_batch
+
+    def noting(ref, pos, active, pat, **kw):
+        sent.append((ref, pos, active, pat))
+        return lv(ref, pos, active, pat, **kw)
+
+    def run(path, paired, use_sw, device):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        polish_mod.polish_main(idx, path, paired=paired, use_sw=use_sw, out=out,
+                               device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return out.getvalue(), time.perf_counter() - t0
+
+    polish_mod.lv_distance_batch = noting
+    launches, largest = {}, None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for tag, sam, paired in (("polish se", se_sam, False),
+                                     ("polish pe", pe_sam, True)):
+                path = os.path.join(tmp, tag.replace(" ", "_") + ".sam")
+                with open(path, "w") as fh:
+                    fh.write("@HD\tVN:1.0\n" + "".join(l + "\n" for l in sam))
+                run(path, paired, False, dev)               # warm-up
+                reset_counts()
+                del sent[:]
+                got, dt = run(path, paired, False, dev)
+                launches[tag.replace(" ", "_")] = report_run(
+                    tag, len(sam), "records", dt, ("lv_distance_bytes",))
+                sizes = [tuple(a[3].shape) for a in sent]
+                print(f"[{tag}] byte-form launches (hits, L): {sizes}", flush=True)
+                if len(sent) != LV_BYTES.launches:
+                    raise AssertionError(f"{tag}: {len(sent)} calls but "
+                                         f"{LV_BYTES.launches} launches counted")
+                top = max(sent, key=lambda a: a[3].shape[0])
+                if largest is None or top[3].shape[0] > largest[3].shape[0]:
+                    largest = top
+                want, dt_cpu = run(path, paired, False, "cpu")
+                n_star = sum(l.split("\t")[2] == "*" for l in got.splitlines())
+                print(f"[{tag}] {len(got.splitlines())} records out, {n_star} "
+                      f"unmapped; the same call on the CPU: {dt_cpu:.2f} s, "
+                      f"output {'equal' if got == want else 'DIFFERENT'}",
+                      flush=True)
+                if got != want or len(got.splitlines()) != len(sam):
+                    raise AssertionError(f"{tag}: the card's output differs from "
+                                         "the CPU's")
+                if not paired:
+                    short = os.path.join(tmp, "short.sam")
+                    with open(short, "w") as fh:
+                        fh.write("".join(l + "\n" for l in sam[:SW_POLISH]))
+                    a, dt_sw = run(short, False, True, dev)
+                    b, _ = run(short, False, True, "cpu")
+                    print(f"[polish se] -s (host SSW) on {SW_POLISH} records: "
+                          f"{dt_sw:.2f} s, output "
+                          f"{'equal' if a == b else 'DIFFERENT'}", flush=True)
+                    if a != b or len(a.splitlines()) != SW_POLISH:
+                        raise AssertionError("polish -s: the card's output "
+                                             "differs from the CPU's")
+    finally:
+        polish_mod.lv_distance_batch = lv
+    return launches, largest
+
+
 # ---------------------------------------------------------------- main
 
 
 def build_all():
-    """Builds both kernels and the native host library side by side (one
-    compiler process each) and prints what ptxas reports."""
+    """Builds both kernel sources and the native host library side by side
+    (one compiler process each) and prints what ptxas reports; K1's byte
+    form is an entry point of lv.cu's library."""
     t0 = time.perf_counter()
 
     def one(name, build):
@@ -829,6 +1163,7 @@ def build_all():
             print(f"[build] {name}: {dt:.2f} s", flush=True)
     print(f"[build] all three side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
+    LV_BYTES.build()
     for kern in (LV, SW):
         report_ptxas(kern)
 
@@ -933,6 +1268,9 @@ def main() -> int:
     lv_err, lv_times = kernel_phase(dev)
     for N, t in lv_times.items():
         print_times(f"lv N={N} L={READ_LEN} k=10", t)
+    lvb_err, lvb_times = byte_kernel_phase(dev, ops_per_s)
+    for N, t in lvb_times.items():
+        print_times(f"lv bytes N={N} L={READ_LEN} k={POLISH_K}", t)
     sw_err, sw_times, sw_long = sw_kernel_phase(dev, ops_per_s)
     for t in sw_times.values():
         print_times(f"sw {t['shape']}", t)
@@ -953,15 +1291,29 @@ def main() -> int:
         for name, c in counts.items():
             launches[name][path] = c
 
-    counts, al, _opts, _warm = se_phase("se", idx, recs, truth, dev,
-                                        ("lv_distance",), N_TIMED)
+    counts, al, _opts, se_warm, se_out = se_phase(
+        "se", idx, recs, truth, dev, ("lv_distance",), N_TIMED)
     note("se_lv", counts)
     busy_share(al, recs[BATCH : 2 * BATCH])
+    full_bytes = al.dix.sa_cat.numel() * al.dix.sa_cat.element_size()
     del al
     sent = {"se_x1": [], "pe": []}
     note("se_x1", x1_phase(idx, recs, truth, dev, sent["se_x1"]))
-    note("pe", pe_phase(idx, hap, dev, sent["pe"]))
+    counts, pe_reads, pe_warm, pe_out = pe_phase(idx, hap, dev, sent["pe"])
+    note("pe", counts)
     sw_sent = time_sw_path_batches(sent, dev, ops_per_s)
+    torch.cuda.empty_cache()
+    for path, counts in sampled_phase(idx, recs, truth, dev, full_bytes,
+                                      (se_warm, se_out), pe_reads,
+                                      pe_warm).items():
+        note(path, counts)
+    by_path, largest = polish_phase(idx, se_out, pe_warm + pe_out, dev)
+    for path, counts in by_path.items():
+        note(path, counts)
+    lvb_sent = dict(time_byte_kernel(*largest, ops_per_s), path="polish",
+                    batches_sent=[int(largest[3].shape[0])])
+    print_times(f"lv bytes at the largest batch polish sent {lvb_sent['shape']}",
+                lvb_sent)
     torch.cuda.synchronize()
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -970,6 +1322,12 @@ def main() -> int:
                       launches["lv_distance"], lv_err, lv_times[8192],
                       [dict(lv_times[16384],
                             shape={"N": 16384, "L": READ_LEN, "k": 10})]),
+        # a second form of K1: salt_tpu computes it in XLA (ops/lv.py:30 as
+        # polish/polish.py:419 jits it), not in a TPU kernel of its own
+        kernel_record("lv_distance_bytes", LV_BYTES,
+                      "salt_tpu/ops/lv_pallas.py:31,96,164",
+                      launches["lv_distance_bytes"], lvb_err, lvb_times[4096],
+                      [lvb_times[8192], lvb_sent]),
         kernel_record("sw_score", SW, "salt_tpu/ops/sw_pallas.py:38,101,278",
                       launches["sw_score"], sw_err, sw_times["x1"],
                       [sw_times["pe"], sw_long] + sw_sent),

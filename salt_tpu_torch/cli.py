@@ -1,18 +1,21 @@
-"""Command-line entry points of the port: `idx` and `aln`.
+"""Command-line entry points of the port: `idx`, `aln` and `polish`.
 
     python -m salt_tpu_torch.cli idx [-k 25] ref.fa snps.txt prefix
     python -m salt_tpu_torch.cli aln [-d] [-c] [-r N] [-s N] [-m N] [-g RG]
-                                     [-X 0|1] [--device cuda|cpu]
-                                     prefix reads.fq
+                                     [-X 0|1] [--sa-mode full|sampled]
+                                     [--device cuda|cpu] prefix reads.fq
     python -m salt_tpu_torch.cli aln -p [-a MIN_TLEN] [-b MAX_TLEN] ...
                                      prefix R1.fq R2.fq
+    python -m salt_tpu_torch.cli polish [-s] [-p] [--device cuda|cpu]
+                                     prefix aln.sam
 
 `aln` runs single-end alignment (Landau-Vishkin extension, or
 Smith-Waterman with -X 1) or, with -p or two read files, paired-end
-alignment, in full suffix-array mode on --device (default cuda; asking
-for cuda without a GPU is an error).  Option handling mirrors
-salt_tpu/cli.py; options of paths that are not ported yet exit with a
-message.
+alignment, in full or sampled suffix-array mode on --device (default
+cuda; asking for cuda without a GPU is an error).  `polish` re-scores
+the multi-hits of a salt SAM (Landau-Vishkin on --device, or host SSW
+with -s).  Option handling mirrors salt_tpu/cli.py; options of paths
+that are not ported yet exit with a message.
 """
 
 from __future__ import annotations
@@ -67,7 +70,23 @@ def main(argv=None):
     al.add_argument("read1")
     al.add_argument("read2", nargs="?")
 
+    po = sub.add_parser("polish", help="re-score a salt SAM's multi-hits")
+    po.add_argument("-s", "--sw", action="store_true")
+    po.add_argument("-p", "--pe", action="store_true")
+    po.add_argument("--device", default="cuda",
+                    help="torch device to score on (default: cuda)")
+    po.add_argument("index_prefix")
+    po.add_argument("sam")
+
     args = ap.parse_args(argv)
+    if args.cmd == "polish":
+        from .index.store import load_index
+        from .polish.polish import polish_main
+
+        polish_main(load_index(args.index_prefix), args.sam, paired=args.pe,
+                    use_sw=args.sw, out=sys.stdout, device=args.device)
+        return 0
+
     if args.cmd == "idx":
         from .index.build import build_index_from_data
         from .index.store import save_index
@@ -85,8 +104,6 @@ def main(argv=None):
 
     if args.shards > 0:
         return _not_ported("the sharded aligner (--shards)")
-    if args.sa_mode != "full":
-        return _not_ported("sampled suffix-array mode (--sa-mode sampled)")
     if args.threads != 1:
         print(f"[aln] -t {args.threads} ignored: batches are data-parallel "
               "on the device", file=sys.stderr)
@@ -109,6 +126,7 @@ def main(argv=None):
         print_nm_md=args.md,
         rg_id=args.group,
         batch_size=args.batch_size,
+        sa_mode=args.sa_mode,
     )
     cmd = " ".join(["salt-tpu-torch"] + argv)
     if args.pe or args.read2:

@@ -1,5 +1,6 @@
 // Banded, SNP-aware Landau-Vishkin edit distance for a batch of
-// candidates (the aligner's gapped check).
+// candidates (the aligner's gapped check), and its byte-wide form (the
+// polish tool's re-scoring).
 //
 // Replaces the TPU kernel salt_tpu/ops/lv_pallas.py:_lv_tile_kernel
 // (and its v2/v3 formulations, which differ only in TPU layout).  It
@@ -61,6 +62,23 @@
 // lane and one ballot.  Groups that share a warp name only their own lanes in
 // every shuffle and vote, so each leaves as soon as it is done.
 //
+// The byte form (salt_lv_distance_bytes) is the same kernel with 8-bit
+// elements, 4 a word: it computes lv_distance_plain with
+// pat_precoded=True, text_words=False (= salt_tpu/ops/lv.py:lv_distance_batch
+// as salt_tpu/polish/polish.py calls it, which is XLA there, not a TPU
+// kernel).  The pattern rows are match codes used as they are (polish's
+// run to 64, which no nibble holds), the reference is one byte a
+// position, and the window byte at uint32 position p is ref[0] when p >=
+// 2^31 (the plain version clips the int32 cast of p) and ref[min(p,
+// n_ref - 1)] otherwise.  Match is still (p & t) != 0 and the guard still
+// equality.  The element width is a template parameter: the nibble
+// instantiations compile to what they were, the byte ones fold 8 bits to
+// bit 0 of each byte, step 4 elements a word and build the window with
+// four byte loads a word, each clamped on its own.  It is bound like the
+// nibble form, by issue slots at a warp a candidate (k = 13 takes
+// the 32-lane group); twice the words a read cost it a few more steps in
+// every run search.
+//
 // With a warp a candidate the call is no longer one chain but the card's
 // instruction throughput: the time doubles from N = 8,192 to 16,384 (0.012 and
 // 0.020 ms on an H100 at 700 W), most of a step's lanes lie outside the
@@ -78,60 +96,83 @@ constexpr int kBig = 255;
 constexpr int kNeg = -2;
 constexpr int kThreads = 128;
 
-// 8 nibbles starting at nibble `nib` of a word stream.
-__device__ __forceinline__ uint32_t read8(const uint32_t* s, int nib) {
-  const int w = nib >> 3;
-  return __funnelshift_r(s[w], s[w + 1], (nib & 7) * 4);
+// Elements are kBits wide (4: one-hot nibbles; 8: match-code bytes),
+// E = 32 / kBits a word, little-endian within the word.
+template <int kBits>
+struct Elem {
+  static constexpr int E = 32 / kBits;
+  static constexpr int kLog = kBits == 4 ? 3 : 2;       // log2(E)
+  static constexpr int kBitLog = kBits == 4 ? 2 : 3;    // log2(kBits)
+  static constexpr uint32_t kOne = kBits == 4 ? 0x11111111u : 0x01010101u;
+  static constexpr uint32_t kMask = (1u << kBits) - 1u;
+};
+
+// E elements starting at element `at` of a word stream.
+template <int kBits>
+__device__ __forceinline__ uint32_t read_word(const uint32_t* s, int at) {
+  using X = Elem<kBits>;
+  const int w = at >> X::kLog;
+  return __funnelshift_r(s[w], s[w + 1], (at & (X::E - 1)) * kBits);
 }
 
-__device__ __forceinline__ uint32_t nibble(const uint32_t* s, int nib) {
-  return (s[nib >> 3] >> ((nib & 7) * 4)) & 15u;
+template <int kBits>
+__device__ __forceinline__ uint32_t element(const uint32_t* s, int at) {
+  using X = Elem<kBits>;
+  return (s[at >> X::kLog] >> ((at & (X::E - 1)) * kBits)) & X::kMask;
 }
 
-// Bit 4q set where pattern nibble i + q ANDs to zero with text nibble
-// i + q + toff, q = 0..7.
-__device__ __forceinline__ uint32_t miss8(const uint32_t* P, const uint32_t* T,
-                                          int i, int toff) {
-  const uint32_t x = read8(P, i) & read8(T, i + toff);
+// Bit kBits * q set where pattern element i + q ANDs to zero with text
+// element i + q + toff, q = 0..E-1.
+template <int kBits>
+__device__ __forceinline__ uint32_t miss_word(const uint32_t* P,
+                                              const uint32_t* T, int i,
+                                              int toff) {
+  const uint32_t x = read_word<kBits>(P, i) & read_word<kBits>(T, i + toff);
   uint32_t t = x | (x >> 1);
-  t = (t | (t >> 2)) & 0x11111111u;
-  return ~t & 0x11111111u;
+  t = t | (t >> 2);
+  if constexpr (kBits == 8) t = t | (t >> 4);
+  t &= Elem<kBits>::kOne;
+  return ~t & Elem<kBits>::kOne;
 }
 
-// First i >= r where pattern nibble i ANDs to zero with text nibble
+// First i >= r where pattern element i ANDs to zero with text element
 // i + toff.  The pattern is zero from L on, so the result is <= L.
+template <int kBits>
 __device__ __forceinline__ int first_miss(const uint32_t* P, const uint32_t* T,
                                           int r, int toff) {
-  for (int i = r;; i += 8) {
-    const uint32_t miss = miss8(P, T, i, toff);
-    if (miss) return i + ((__ffs(miss) - 1) >> 2);
+  using X = Elem<kBits>;
+  for (int i = r;; i += X::E) {
+    const uint32_t miss = miss_word<kBits>(P, T, i, toff);
+    if (miss) return i + ((__ffs(miss) - 1) >> X::kBitLog);
   }
 }
 
-// first_miss(P, T, 0, toff) by a whole group: lane t looks at the 8
-// nibbles from 8t (then 8(t + G), ...), a ballot finds the first lane with
-// a mismatch.  Every lane of the group gets the result.
-template <int G>
+// first_miss(P, T, 0, toff) by a whole group: lane t looks at the E
+// elements from E * t (then E * (t + G), ...), a ballot finds the first
+// lane with a mismatch.  Every lane of the group gets the result.
+template <int G, int kBits>
 __device__ __forceinline__ int first_miss_group(const uint32_t* P,
                                                 const uint32_t* T, int L,
                                                 int toff, int t,
                                                 unsigned mask) {
+  using X = Elem<kBits>;
   const int lane0 = (threadIdx.x & 31) - t;  // the group's first lane
-  for (int i0 = 0;; i0 += 8 * G) {
-    const int i = i0 + 8 * t;
-    const uint32_t miss = i <= L ? miss8(P, T, i, toff) : 0u;
+  for (int i0 = 0;; i0 += X::E * G) {
+    const int i = i0 + X::E * t;
+    const uint32_t miss = i <= L ? miss_word<kBits>(P, T, i, toff) : 0u;
     const unsigned vote = __ballot_sync(mask, miss != 0u) & mask;
     if (vote) {
       const int src = __ffs(vote) - 1;
       const uint32_t m = __shfl_sync(mask, miss, src);
-      return i0 + 8 * (src - lane0) + ((__ffs(m) - 1) >> 2);
+      return i0 + X::E * (src - lane0) + ((__ffs(m) - 1) >> X::kBitLog);
     }
   }
 }
 
-// The low `n` nibbles of a word, 0 <= n <= 8.
-__device__ __forceinline__ uint32_t low_nibbles(int n) {
-  return n >= 8 ? 0xffffffffu : (1u << (4 * n)) - 1u;
+// The low `n` elements of a word, 0 <= n <= E.
+template <int kBits>
+__device__ __forceinline__ uint32_t low_elements(int n) {
+  return n >= Elem<kBits>::E ? 0xffffffffu : (1u << (kBits * n)) - 1u;
 }
 
 // The lanes of this thread's group of G within its warp.
@@ -145,15 +186,20 @@ __device__ __forceinline__ unsigned group_mask() {
 }
 
 // G lanes a candidate, kPer diagonals a lane: diagonal dd = t * kPer + i.
-template <int G, int kPer>
+// kBits = 4: `ref` is uint32 words of 8 nibbles, n_ref words, `seq` holds
+// base codes.  kBits = 8: `ref` is bytes, n_ref of them, `seq` holds match
+// codes.
+template <int G, int kPer, int kBits>
 __global__ void __launch_bounds__(kThreads)
-    lv_distance_kernel(const uint32_t* __restrict__ words,
-                       unsigned long long n_words,
+    lv_distance_kernel(const void* __restrict__ ref,
+                       unsigned long long n_ref,
                        const long long* __restrict__ pos,
                        const uint8_t* __restrict__ active,
                        const uint8_t* __restrict__ seq, int n, int L, int TL,
                        int k, int nwp, int nwt, int stride,
                        int* __restrict__ out) {
+  using X = Elem<kBits>;
+  constexpr int E = X::E;
   extern __shared__ uint32_t smem[];
   constexpr int kGroups = kThreads / G;
   const int group = threadIdx.x / G;
@@ -170,51 +216,81 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t* P = smem + group * stride;
   uint32_t* T = P + nwp;
 
-  // one-hot pattern, zero from L on: lane w packs word w
+  // pattern, zero from L on: lane w packs word w (one-hot nibbles of the
+  // base codes, or the match codes as they are)
   const uint8_t* s = seq + static_cast<size_t>(cand) * L;
   for (int w = t; w < nwp; w += G) {
     uint32_t word = 0;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int i = w * 8 + q;
+    for (int q = 0; q < E; ++q) {
+      const int i = w * E + q;
       if (i < L) {
-        const uint32_t c = min(static_cast<uint32_t>(s[i]), 4u);
-        word |= (c == 4u ? 15u : (1u << c)) << (4 * q);
+        if constexpr (kBits == 4) {
+          const uint32_t c = min(static_cast<uint32_t>(s[i]), 4u);
+          word |= (c == 4u ? 15u : (1u << c)) << (4 * q);
+        } else {
+          word |= static_cast<uint32_t>(s[i]) << (8 * q);
+        }
       }
     }
     P[w] = word;
   }
 
   // text window: T[j] = text[0] for j < k, text[j - k] for j < k + TL,
-  // then zero.  Word w holds the 8 nibbles at uint32 positions
-  // base - k + 8w + q: a funnel shift of two reference words, each at its
-  // own wrapped and clamped index.
+  // then zero.  Word w holds the E elements at uint32 positions
+  // base - k + E * w + q.
   const uint32_t base = static_cast<uint32_t>(pos[cand]);
-  auto word_at = [&](uint32_t nib_pos) -> uint32_t {
-    return words[min(static_cast<unsigned long long>(nib_pos >> 3),
-                     n_words - 1)];
-  };
-  const uint32_t first = (word_at(base) >> ((base & 7u) * 4u)) & 15u;
   const uint32_t start = base - static_cast<uint32_t>(k);
-  const int shift = static_cast<int>(start & 7u) * 4;
-  for (int w0 = 0; w0 < nwt; w0 += G) {
-    const int w = w0 + t;
-    const uint32_t p = start + 8u * static_cast<uint32_t>(w);
-    const uint32_t lo = word_at(p);
-    uint32_t hi = __shfl_down_sync(mask, lo, 1, G);
-    if (t == G - 1) hi = word_at(p + 8u);
-    if (w < nwt) {
-      uint32_t word = __funnelshift_r(lo, hi, shift);
-      const uint32_t front = low_nibbles(min(max(k - 8 * w, 0), 8));
-      word = (word & ~front) | ((first * 0x11111111u) & front);
-      word &= low_nibbles(min(max(k + TL - 8 * w, 0), 8));
-      T[w] = word;
+  uint32_t first;
+  if constexpr (kBits == 4) {
+    // a funnel shift of two reference words, each at its own wrapped and
+    // clamped index
+    const uint32_t* words = static_cast<const uint32_t*>(ref);
+    auto word_at = [&](uint32_t nib_pos) -> uint32_t {
+      return words[min(static_cast<unsigned long long>(nib_pos >> 3),
+                       n_ref - 1)];
+    };
+    first = (word_at(base) >> ((base & 7u) * 4u)) & 15u;
+    const int shift = static_cast<int>(start & 7u) * 4;
+    for (int w0 = 0; w0 < nwt; w0 += G) {
+      const int w = w0 + t;
+      const uint32_t p = start + 8u * static_cast<uint32_t>(w);
+      const uint32_t lo = word_at(p);
+      uint32_t hi = __shfl_down_sync(mask, lo, 1, G);
+      if (t == G - 1) hi = word_at(p + 8u);
+      if (w < nwt) {
+        uint32_t word = __funnelshift_r(lo, hi, shift);
+        const uint32_t front = low_elements<4>(min(max(k - 8 * w, 0), 8));
+        word = (word & ~front) | ((first * 0x11111111u) & front);
+        word &= low_elements<4>(min(max(k + TL - 8 * w, 0), 8));
+        T[w] = word;
+      }
+    }
+  } else {
+    // four byte loads a word, each position clipped on its own: 0 where
+    // its int32 cast is negative, else at most the last byte
+    const uint8_t* bytes = static_cast<const uint8_t*>(ref);
+    auto byte_at = [&](uint32_t p) -> uint32_t {
+      if (p & 0x80000000u) return bytes[0];
+      return bytes[min(static_cast<unsigned long long>(p), n_ref - 1)];
+    };
+    first = byte_at(base);
+    for (int w = t; w < nwt; w += G) {
+      const uint32_t p = start + 4u * static_cast<uint32_t>(w);
+      uint32_t word = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = 4 * w + q;           // element of the stream
+        if (j >= k && j < k + TL) word |= byte_at(p + q) << (8 * q);
+      }
+      const uint32_t front = low_elements<8>(min(max(k - 4 * w, 0), 4));
+      T[w] = word | ((first * 0x01010101u) & front);
     }
   }
   __syncwarp(mask);
 
   // phase 1: the run from (0, 0), all lanes on it together
-  const int run0 = min(first_miss_group<G>(P, T, L, k, t, mask), L);
+  const int run0 = min(first_miss_group<G, kBits>(P, T, L, k, t, mask), L);
   if (run0 >= L) {
     if (t == 0) out[cand] = 0;
     return;
@@ -245,8 +321,8 @@ __global__ void __launch_bounds__(kThreads)
       int r = best;
       if (in_band && best >= 0) {
         const int bc = min(best, L);
-        if (nibble(P, bc) == nibble(T, bc + dd)) {
-          r = min(first_miss(P, T, bc, dd), min(L, TL - d));
+        if (element<kBits>(P, bc) == element<kBits>(T, bc + dd)) {
+          r = min(first_miss<kBits>(P, T, bc, dd), min(L, TL - d));
         }
       }
       next[i] = in_band ? r : cur;
@@ -262,21 +338,51 @@ __global__ void __launch_bounds__(kThreads)
   if (t == 0) out[cand] = kBig;
 }
 
-template <int G, int kPer>
-int launch(const uint32_t* words, unsigned long long n_words,
-           const long long* pos, const uint8_t* active, const uint8_t* seq,
-           int n, int L, int TL, int k, int* out, cudaStream_t stream) {
+template <int G, int kPer, int kBits>
+int launch(const void* ref, unsigned long long n_ref, const long long* pos,
+           const uint8_t* active, const uint8_t* seq, int n, int L, int TL,
+           int k, int* out, cudaStream_t stream) {
   constexpr int kGroups = kThreads / G;
-  const int nwp = L / 8 + 2;
-  const int nwt = (L + 2 * k) / 8 + 2;
+  constexpr int E = Elem<kBits>::E;
+  const int nwp = L / E + 2;
+  const int nwt = (L + 2 * k) / E + 2;
   // an odd stride spreads the groups of one warp over the banks
   const int stride = (nwp + nwt) | 1;
   const size_t smem = static_cast<size_t>(stride) * kGroups * 4;
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    // long reads in bytes with many groups a block: ask for the room
+    const cudaError_t err = cudaFuncSetAttribute(
+        lv_distance_kernel<G, kPer, kBits>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int blocks = (n + kGroups - 1) / kGroups;
-  lv_distance_kernel<G, kPer><<<blocks, kThreads, smem, stream>>>(
-      words, n_words, pos, active, seq, n, L, TL, k, nwp, nwt, stride, out);
+  lv_distance_kernel<G, kPer, kBits><<<blocks, kThreads, smem, stream>>>(
+      ref, n_ref, pos, active, seq, n, L, TL, k, nwp, nwt, stride, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lanes a candidate gets follow from k alone.
+template <int kBits>
+int launch_by_k(const void* ref, unsigned long long n_ref,
+                const long long* pos, const uint8_t* active,
+                const uint8_t* seq, int n, int L, int TL, int k, int* out,
+                void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 0 || k > 30 || n_ref == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k <= 3) {
+    return launch<8, 1, kBits>(ref, n_ref, pos, active, seq, n, L, TL, k, out, s);
+  }
+  if (k <= 7) {
+    return launch<16, 1, kBits>(ref, n_ref, pos, active, seq, n, L, TL, k, out, s);
+  }
+  if (k <= 15) {
+    return launch<32, 1, kBits>(ref, n_ref, pos, active, seq, n, L, TL, k, out, s);
+  }
+  return launch<32, 2, kBits>(ref, n_ref, pos, active, seq, n, L, TL, k, out, s);
 }
 
 }  // namespace
@@ -285,25 +391,26 @@ int launch(const uint32_t* words, unsigned long long n_words,
 // error code of the launch (0 on success).  words: uint32 [n_words];
 // pos: int64 [n] (low 32 bits are the position); active: bool [n];
 // seq: uint8 [n, L] base codes; out: int32 [n].  Requires 1 <= L <= 2047,
-// TL >= L, 0 <= k <= 30.  The lanes a candidate gets follow from k alone.
+// TL >= L, 0 <= k <= 30.
 extern "C" int salt_lv_distance(const uint32_t* words,
                                 unsigned long long n_words,
                                 const long long* pos, const uint8_t* active,
                                 const uint8_t* seq, int n, int L, int TL,
                                 int k, int* out, void* stream) {
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 0 || k > 30) return static_cast<int>(cudaErrorInvalidValue);
-  if (k <= 3) {
-    return launch<8, 1>(words, n_words, pos, active, seq, n, L, TL, k, out, s);
-  }
-  if (k <= 7) {
-    return launch<16, 1>(words, n_words, pos, active, seq, n, L, TL, k, out, s);
-  }
-  if (k <= 15) {
-    return launch<32, 1>(words, n_words, pos, active, seq, n, L, TL, k, out, s);
-  }
-  return launch<32, 2>(words, n_words, pos, active, seq, n, L, TL, k, out, s);
+  return launch_by_k<4>(words, n_words, pos, active, seq, n, L, TL, k, out,
+                        stream);
+}
+
+// The byte form: ref: uint8 [n_ref], one match code a position; seq: uint8
+// [n, L] match codes, used as they are.  Everything else as above.
+extern "C" int salt_lv_distance_bytes(const uint8_t* ref,
+                                      unsigned long long n_ref,
+                                      const long long* pos,
+                                      const uint8_t* active,
+                                      const uint8_t* seq, int n, int L, int TL,
+                                      int k, int* out, void* stream) {
+  return launch_by_k<8>(ref, n_ref, pos, active, seq, n, L, TL, k, out,
+                        stream);
 }
 
 extern "C" const char* salt_cuda_error_string(int code) {

@@ -32,6 +32,9 @@ class CudaKernel:
     every function returns the CUDA error code of its launch, and every
     source exports `salt_cuda_error_string`."""
 
+    # one lock a library: two kernels of one source never build it at once
+    _locks: dict = {}
+
     def __init__(self, source_name: str, functions: dict):
         self.source = CSRC / source_name
         self.library = BUILD_DIR / f"libsalt_{self.source.stem}.so"
@@ -39,7 +42,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._lib = None
-        self._lock = threading.Lock()
+        self._lock = self._locks.setdefault(self.library, threading.Lock())
 
     def build(self) -> ctypes.CDLL:
         """Compile (if the library is missing or older than its source)

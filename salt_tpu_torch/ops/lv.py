@@ -15,7 +15,9 @@ Device side: batched distances with Align_src/LandauVishkin.c:19-122
 
 `lv_distance_batch` runs the CUDA kernel (ops/lv_cuda.py) on CUDA
 tensors and the plain PyTorch version, `lv_distance_plain`, on CPU
-tensors.
+tensors.  The kernel has two forms: packed reference words with base
+codes (the aligner's gapped check) and a byte reference with precoded
+patterns (polish).
 
 Host side: `lv_cigar_host` replicates computeEditDistanceWithCigar
 (LandauVishkin.c:176-470), including its d order (0, -1, 1, -2, 2 ...)
@@ -50,12 +52,16 @@ def lv_distance_batch(
     """Edit distances; inactive or unalignable -> BIG (255).  The kernel
     on CUDA tensors, the plain version on CPU tensors."""
     if mixref.is_cuda:
-        if pat_precoded or not text_words:
+        if pat_precoded != (not text_words):
             raise NotImplementedError(
-                "the CUDA LV kernel takes packed reference words and base "
-                "codes only (text_words=True, pat_precoded=False); the "
-                "other forms serve polish, which is not ported yet "
-                "(ROADMAP.md)")
+                "the CUDA LV kernel has two forms: packed reference words "
+                "with base codes (text_words=True, pat_precoded=False) and a "
+                "byte reference with precoded patterns (text_words=False, "
+                "pat_precoded=True); the two mixed combinations have no "
+                "caller and no kernel")
+        if pat_precoded:
+            return lv_cuda.lv_distance_bytes_cuda(mixref, pos, active, seq, k,
+                                                  window_pad)
         return lv_cuda.lv_distance_cuda(mixref, pos, active, seq, k, window_pad)
     return lv_distance_plain(mixref, pos, active, seq, k, window_pad,
                              pat_precoded, text_words)

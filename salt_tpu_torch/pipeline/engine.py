@@ -1,7 +1,7 @@
 """Host-side SE alignment engine: batching, device dispatch, hit
 finalization (query_set_hits semantics) and SAM record assembly.
-Port of salt_tpu/pipeline/engine.py in full suffix-array mode, with
-Landau-Vishkin or Smith-Waterman (-X 1) extension.
+Port of salt_tpu/pipeline/engine.py in full and in sampled suffix-array
+mode, with Landau-Vishkin or Smith-Waterman (-X 1) extension.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from .se import (
     unpack_result,
 )
 
-_NOT_PORTED = "is not ported to salt_tpu_torch yet (see ROADMAP.md)"
 # reads per full-width re-run: bounds its 2 * rows * cap LV candidates
 FULL_WIDTH_BATCH = 8
 
@@ -72,7 +71,14 @@ class SEOptions:
     # undefined; this implements the evident intent: best SW locus wins,
     # SW cigar with soft clips, MAPQ from (score1, score2).
     extend_algo: str = "lv"  # "lv" | "sw"
-    sa_mode: str = "full"    # "sampled" is a later slice
+    # index residency: "full" = one-gather locate (4 bytes a rank on the
+    # device); "sampled" = bounded LF-walk locate over much smaller
+    # tables (device_index.SampledSA), sampled every sa_intv positions
+    sa_mode: str = "full"
+    sa_intv: int = 8
+    # locate column-block size (ops/locate.py): None = 128 columns in
+    # sampled mode and all slots at once in full mode; 0 = all at once
+    locate_chunk: Optional[int] = None
     sw_thres_score: int = 50     # aln_opt->thres_score (aln.h:144)
     sw_filterd: int = 20         # aln_opt->filterd (aln.h:142)
     # batched device SW pre-filter (ops/sw_batch.py): candidates whose
@@ -211,9 +217,9 @@ class SEAligner:
         if self.opts.device_sw not in ("auto", "on", "off"):
             raise ValueError(f"device_sw={self.opts.device_sw!r}: expected "
                              "'auto', 'on' or 'off'")
-        if self.opts.sa_mode != "full":
-            raise NotImplementedError(
-                f"sa_mode={self.opts.sa_mode!r} {_NOT_PORTED}")
+        if self.opts.sa_mode not in ("full", "sampled"):
+            raise ValueError(f"sa_mode={self.opts.sa_mode!r}: expected "
+                             "'full' or 'sampled'")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for but no CUDA "
@@ -222,7 +228,12 @@ class SEAligner:
             # the caller's options object may be shared: copy, not mutate
             self.opts = dataclasses.replace(
                 self.opts, k_hits=min(self.opts.k_hits, 8))
-        self.dix = to_device_index(index, self.device)
+        self.sampled = None
+        if self.opts.sa_mode == "sampled":
+            self.dix, self.sampled = to_device_index(
+                index, self.device, "sampled", self.opts.sa_intv)
+        else:
+            self.dix = to_device_index(index, self.device)
 
     # ---------------- device dispatch ----------------
 
@@ -238,7 +249,8 @@ class SEAligner:
                 self.dix, fwd, rev,
                 l_overlap=o.l_overlap, max_seed=o.max_seed,
                 max_locate=o.max_locate, cap=o.cap(), u=o.verify_width,
-                k_hits=o.k_hits, pe_mode=o.pe_locate,
+                k_hits=o.k_hits, pe_mode=o.pe_locate, sampled=self.sampled,
+                chunk=o.locate_chunk,
             )
             packed_dev = pack_result(out.res, (out.needs_gap, out.overflow))
         return fwd, rev, out, packed_dev

@@ -107,6 +107,8 @@ def se_ungapped(
     u: int = 64,
     k_hits: int = 16,
     pe_mode: bool = False,
+    sampled=None,           # SampledSA: locate by LF walks (sampled mode)
+    chunk: int = None,      # locate column-block size (ops/locate.py)
 ) -> UngappedOut:
     """Seed + locate + sort, compact + word-packed mismatch counts, then
     threshold replay, with both strands in one (2B, ...) batch."""
@@ -119,7 +121,8 @@ def se_ungapped(
         r_lkt_sp=dix.r_lkt_sp, r_lkt_ep=dix.r_lkt_ep,
     )
     lo = locate(c_seeds, r_seeds, dix.sa_cat, dix.c_sa_len, L, dix.l_pac,
-                max_locate, cap, pe_mode=pe_mode)
+                max_locate, cap, pe_mode=pe_mode, sampled=sampled,
+                ri_c=dix.ri_c, ri_r=dix.ri_r, chunk=chunk)
     lc = sort_loci(lo.loci)
     pos, keep, ovf = compact_loci(lc, checked_mask(lc, dix.l_pac), u)
     v = mismatch_counts_packed(dix.mixref_words, pos, keep, seq2,

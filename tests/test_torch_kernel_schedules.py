@@ -17,6 +17,12 @@ a schedule could get wrong without any GPU noticing at the shapes tried:
     pos & 7, at the clamped end of the reference and across 2^32; one
     lane per diagonal (two for k > 15), every reach of step e from step
     e - 1, kNeg outside the band, the walk ended at the smallest e.
+  * the same kernel's byte form (polish): 4 match codes a word, the
+    window from byte loads clipped one by one (position >= 2^31 reads
+    byte 0, past the end reads the last byte), the front mask in bytes,
+    the run search on packed words with the 8-bit fold, and the band walk
+    over them, equal to lv_distance_plain with pat_precoded and a byte
+    reference.
 
 Inputs from a numpy seed; every comparison is exact."""
 
@@ -276,18 +282,26 @@ def lv_lanes(k):
 
 
 def lv_model(words, pos, active, seq, k, window_pad):
-    """lv_distance_kernel for N candidates at once: reach is (N, G, per),
-    neighbours come by a shift along the lane axis."""
+    """lv_distance_kernel's nibble form for N candidates at once."""
     N, L = seq.shape
     TL = L + window_pad
     k = min(LV_MAX_K - 1, k)
+    nwt = (L + 2 * k) // 8 + 2
+    T = np.stack([window_model(words, p, k, TL, nwt, lv_lanes(k)[0])
+                  for p in pos])
+    P = np.zeros((N, 8 * (L // 8 + 2)), np.int64)
+    P[:, :L] = NT2BIT_NP[np.clip(seq, 0, 4)]
+    return band_walk(P, T, active, L, TL, k)
+
+
+def band_walk(P, T, active, L, TL, k):
+    """The kernel's walk over a pattern stream P and a window stream T
+    (one element an entry, either width): reach is (N, G, per),
+    neighbours come by a shift along the lane axis."""
+    N = P.shape[0]
     G, per = lv_lanes(k)
     D = 2 * k + 1
     assert G * per >= D
-    nwt = (L + 2 * k) // 8 + 2
-    T = np.stack([window_model(words, p, k, TL, nwt, G) for p in pos])
-    P = np.zeros((N, 8 * (L // 8 + 2)), np.int64)
-    P[:, :L] = NT2BIT_NP[np.clip(seq, 0, 4)]
     ii = np.arange(L + 1)
 
     def first_miss(r, dd):
@@ -373,4 +387,154 @@ def test_lv_lane_per_diagonal_schedule(k, L):
     assert (got == want).all(), np.nonzero(got != want)[0][:8]
     if k >= 3:
         assert ((want > 0) & (want <= k)).sum() >= 5       # the band walk ran
+    assert (want[~active] == BIG).all()
+
+
+# ------------------------------------------------------------ K1 byte form
+
+POLISH_CODES = np.array([1, 2, 4, 8, 16, 32, 64], np.uint8)
+
+
+def byte_window_words(ref, pos, k, TL, nwt):
+    """The byte form's window assembly for one candidate, as packed uint32
+    words: word w holds the bytes at uint32 positions pos - k + 4w + q,
+    each clipped on its own (byte 0 where the int32 cast is negative, else
+    at most the last byte), zero outside [k, k + TL), and the k bytes in
+    front overwritten with window byte 0 through the byte mask."""
+    n = len(ref)
+
+    def byte_at(p):
+        p &= U32
+        return int(ref[0] if p & 0x80000000 else ref[min(p, n - 1)])
+
+    base = int(pos) & U32
+    first = byte_at(base)
+    start = (base - k) & U32
+    words = np.zeros(nwt, np.uint32)
+    for w in range(nwt):
+        word = 0
+        for q in range(4):
+            j = 4 * w + q
+            if k <= j < k + TL:
+                word |= byte_at(start + j) << (8 * q)
+        n_front = min(max(k - 4 * w, 0), 4)
+        front = U32 if n_front >= 4 else (1 << (8 * n_front)) - 1
+        words[w] = word | ((first * 0x01010101) & front)
+    return words
+
+
+def unpack_bytes(words):
+    return ((words[..., None].astype(np.int64) >> (8 * np.arange(4))) & 255
+            ).reshape(*words.shape[:-1], -1)
+
+
+def byte_window_rule(ref_t, pos, k, TL, n):
+    """What lv_distance_plain reads with a byte reference: the byte at
+    clip(int32(uint32(pos + j)), 0, len - 1)."""
+    t = (int(pos) + np.arange(TL)) & U32
+    t = np.where(t >= 2**31, 0, np.minimum(t, len(ref_t) - 1))
+    text = ref_t[t].astype(np.int64)
+    return np.concatenate([np.full(k, text[0]), text,
+                           np.zeros(n - k - TL, np.int64)])
+
+
+@pytest.mark.parametrize("k", [0, 3, 13, 30])
+def test_lv_byte_window_by_clipped_loads(k):
+    rng = np.random.default_rng(50 + k)
+    n = 3001                               # the last word of bytes is ragged
+    ref = POLISH_CODES[rng.integers(0, 7, n)]
+    L = TL = 100
+    nwt = (L + 2 * k) // 4 + 2
+    for pos in [0, 1, 2, 3, 5, 1234, n - TL, n - TL + 1, n - 50, n - 1, n + 7,
+                2**31 - 40, 2**31 + 5, 2**32 - 60, 2**32 - 1]:
+        got = unpack_bytes(byte_window_words(ref, pos, k, TL, nwt))
+        want = byte_window_rule(ref, pos, k, TL, nwt * 4)
+        assert (got == want).all(), (pos, np.nonzero(got != want)[0][:8])
+
+
+def packed_first_miss(P, T, r, toff):
+    """first_miss on packed byte words: funnel-shifted reads of 4 codes,
+    AND, fold each byte's bits to its bit 0, the first clear byte."""
+    def read_word(s, at):
+        w = at >> 2
+        return int(funnel_shift_right(s[w : w + 1], s[w + 1 : w + 2],
+                                      (at & 3) * 8)[0])
+
+    i = r
+    while True:
+        x = read_word(P, i) & read_word(T, i + toff)
+        t = x | (x >> 1)
+        t |= t >> 2
+        t |= t >> 4
+        miss = ~t & 0x01010101
+        if miss:
+            return i + ((miss & -miss).bit_length() - 1 >> 3)
+        i += 4
+
+
+def test_lv_byte_run_search_on_packed_words():
+    """The word-wise search gives the first i >= r with P[i] & T[i + toff]
+    == 0 for every start and offset, and never passes L (P is zero from L
+    on), whatever bits the codes have."""
+    rng = np.random.default_rng(9)
+    L, k = 37, 13
+    nwp, nwt = L // 4 + 2, (L + 2 * k) // 4 + 2
+    for trial in range(40):
+        pat = np.zeros(nwp * 4, np.int64)
+        pat[:L] = rng.choice([1, 2, 4, 8, 16, 32, 64, 3, 0x81, 255], L)
+        text = rng.choice([1, 2, 4, 8, 16, 32, 64, 0x81, 0], nwt * 4)
+        if trial % 2:                      # long runs: text follows the pattern
+            toff0 = int(rng.integers(0, 2 * k + 1))
+            text[toff0 : toff0 + L] = pat[:L]
+            text[toff0 + int(rng.integers(0, L))] = 128
+        pack = lambda a: (a.reshape(-1, 4) << (8 * np.arange(4))).sum(1).astype(np.uint32)
+        P, T = pack(pat), pack(text)
+        for toff in (0, 1, 2, 3, k, 2 * k):
+            for r in (0, 1, 2, 3, 4, 17, L - 1, L):
+                miss = (pat[: L + 1] & text[toff : toff + L + 1]) == 0
+                miss[:r] = False
+                assert packed_first_miss(P, T, r, toff) == miss.argmax()
+
+
+@pytest.mark.parametrize("L", [37, 100])
+@pytest.mark.parametrize("k", [0, 3, 13, 30])
+def test_lv_byte_form_schedule(k, L):
+    """The byte form end to end (packed window, byte streams, the same
+    band walk) against lv_distance_plain with pat_precoded and a byte
+    reference, window_pad = 0 as polish calls it: planted reads with
+    edits, windows cut by the reference end, positions >= 2^31."""
+    rng = np.random.default_rng(300 * k + L)
+    n, N = 5003, 60
+    ref = POLISH_CODES[rng.integers(0, 4, n)]
+    ref[rng.random(n) < 0.01] = 16                       # N in the reference
+    pos = rng.integers(0, n - L - 40, N).astype(np.int64)
+    pat = POLISH_CODES[rng.integers(0, 4, (N, L))]
+    for i in range(0, N, 2):
+        r = list(ref[pos[i] : pos[i] + L + 8])
+        for _ in range(int(rng.integers(0, min(k, 4) + 1))):
+            j = int(rng.integers(0, len(r) - 1))
+            op = rng.integers(0, 3)
+            if op == 0:
+                r[j] = POLISH_CODES[(int(np.log2(r[j])) + 1) % 4]
+            elif op == 1:
+                del r[j]
+            else:
+                r.insert(j, POLISH_CODES[rng.integers(0, 4)])
+        pat[i] = r[:L]
+    pat[3, 7] = 32                                       # 3 - N of a reverse read
+    pat[5, 9] = 64                                       # a stray byte
+    pos[-4:] = [n - L, n - 3, 2**31 + 17, 2**32 - 5]     # cut / clipped windows
+    pat[-4] = ref[n - L :]
+    active = rng.random(N) < 0.9
+    nwt = (L + 2 * k) // 4 + 2
+    T = np.stack([unpack_bytes(byte_window_words(ref, p, k, L, nwt)) for p in pos])
+    P = np.zeros((N, 4 * (L // 4 + 2)), np.int64)
+    P[:, :L] = pat
+    got = band_walk(P, T, active, L, L, min(LV_MAX_K - 1, k))
+    want = lv_distance_plain(
+        torch.from_numpy(ref), torch.from_numpy(pos), torch.from_numpy(active),
+        torch.from_numpy(pat), k, 0, pat_precoded=True).numpy()
+    assert (got == want).all(), np.nonzero(got != want)[0][:8]
+    if k >= 3:
+        assert ((want > 0) & (want <= k)).sum() >= 5
     assert (want[~active] == BIG).all()

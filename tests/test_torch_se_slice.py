@@ -148,9 +148,9 @@ def test_cli_aln_on_saved_index(tiny, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--shards", "2", "-p"],
-                                   ["--sa-mode", "sampled", "-X", "1"],
+                                   ["--shards", "2", "-X", "1"],
                                    ["--shards", "2"],
-                                   ["--sa-mode", "sampled"]])
+                                   ["--shards", "4", "--sa-mode", "sampled"]])
 def test_cli_unported_paths_exit_with_message(tmp_path, flags):
     from salt_tpu_torch import cli
 
