@@ -35,8 +35,9 @@
    kernel in turns old, new, new, old; times the one-thread kernel at
    L = 2,047.  After the slice phases, the same turns at the batch sizes
    the paths really sent.
-4. Slice phases on one chr21-scale SNP-aware index (45M bases, 1 SNP per
-   300 bp) built in process: SE with Landau-Vishkin extension, SE with
+4. Slice phases on one chr21-scale SNP-aware index (45M bases in 8
+   contigs, 1 SNP per 300 bp) built in process, the 4 sub-indexes of the
+   sharded aligner beside it: SE with Landau-Vishkin extension, SE with
    Smith-Waterman extension (-X 1), and paired-end with mate rescue.  Each
    runs one warm-up batch and timed ones with every launch count set to 0
    just before, checks that its kernels ran, the mapped and correct
@@ -52,11 +53,29 @@
    CPU; SSW scoring (-s) on 512 records; then K1's byte form timed at the
    largest batch that path sent.
 
+7. The index sharded by reference bin (4 shards, all resident on the one
+   card): SE with Landau-Vishkin extension on the SE phase's reads (SAM
+   byte-identical to the monolithic aligner's, K1 launched in every timed
+   batch, the two aligners' rates in turns, device bytes of the four
+   sub-indexes, the CPU's SAM on a prefix), one -X 1 batch and one PE
+   chunk (SAM equal to the monolithic phases', K2 in both modes); every
+   shape K1 and K2 were sent is held against the plain version; the
+   ungapped sharded step (sharded_se_step) on its default devices, equal
+   to the monolithic ungapped step.
+8. fast_cap=64 on one batch (SAM equal to one locate tier, the rows
+   located again, both times in turns); the data-parallel step over
+   make_mesh() and over the card named twice, equal to the unsplit step.
+9. The command line on a 3,000,000-base genome in a temporary directory:
+   idx --shards 4, aln, aln --shards 4, aln --part-dir as processes 0 and
+   1 of 2 and --merge, all the same SAM; SALT_TPU_TRACE gives a Chrome
+   trace that holds CUDA kernel events.
+
 Every phase raises on failure.  The last two lines of stdout are the
 kernels' JSON record and {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, when no CUDA device is available.
 """
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -72,6 +91,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from salt_tpu_torch import cli
+from salt_tpu_torch.constants import GAP_WINDOW_PAD, NOGAP_MAX_DIFF
 from salt_tpu_torch.index.build import build_index_from_data
 from salt_tpu_torch.io.fasta import SeqRecord
 from salt_tpu_torch.io.snp import SnpBlock
@@ -86,16 +107,46 @@ from salt_tpu_torch.ops.lv_cuda import (
 from salt_tpu_torch.ops.rank import build_rank_index
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
 from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda, sw_score_launch
-from salt_tpu_torch.pipeline.device_index import pack_nibbles
-from salt_tpu_torch.pipeline.engine import SEAligner, SEOptions
+from salt_tpu_torch.parallel.mesh import make_mesh, sharded_full_step
+from salt_tpu_torch.parallel.sharded import (
+    merge_sharded_hits,
+    partition_contigs_contiguous,
+    sharded_se_step,
+    stack_indexes,
+)
+from salt_tpu_torch.parallel.sharded_engine import (
+    ShardedPEAligner,
+    ShardedSEAligner,
+)
+from salt_tpu_torch.pipeline import se as se_mod
+from salt_tpu_torch.pipeline.device_index import pack_nibbles, to_device_index
+from salt_tpu_torch.pipeline.engine import (
+    SEAligner,
+    SEOptions,
+    encode_reads,
+    revcomp,
+)
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
 from salt_tpu_torch.polish import polish as polish_mod
 from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.utils.native import load_native
 
 GENOME_LEN = 45_000_000
+N_CONTIGS = 8        # bins of the sharded aligner are runs of contigs
+N_SHARDS = 4
+CLI_GENOME_LEN = 3_000_000
+CLI_READS = 4096
+MESH_READS = 2048    # rows of the data-parallel step
 SNP_EVERY = 300
 READ_LEN = 100
+# Reads keep this far from their contig's ends.  The gapped step skips a
+# candidate whose window (position + read length + GAP_WINDOW_PAD) reaches
+# the end of the index it is checked in: a bin's end in a sharded run, the
+# genome's in a monolithic one.  A read the gapped step can accept carries
+# at most READ_LEN // 10 inserted bases, so beyond this margin the two
+# runs must give the same SAM (tests/test_torch_shard_slice.py pins the
+# rule down on reads inside the margin).
+EDGE = GAP_WINDOW_PAD + READ_LEN // 10 + 2
 BATCH = 8192
 N_TIMED = 3          # timed batches of the SE LV phase
 N_TIMED_SW = 2       # timed batches of the -X 1 phase, chunks of the PE phase
@@ -693,19 +744,70 @@ def time_sw_path_batches(sent, dev, ops_per_s):
 # ---------------------------------------------------------------- slices
 
 
-def make_index(genome_len, snp_every, rng):
+def make_genome(genome_len, snp_every, rng):
+    """A random genome in N_CONTIGS contigs of unequal length with one SNP
+    per snp_every bases.  Returns (contig_data, blocks, bounds, hap, codes,
+    pos, alt): contig c holds bases bounds[c]..bounds[c + 1], `hap` carries
+    every SNP's other allele."""
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     codes = rng.integers(0, 4, genome_len, dtype=np.int64).astype(np.uint8)
     n_snp = genome_len // snp_every
     pos = np.sort(rng.choice(genome_len, n_snp, replace=False).astype(np.int64))
     alt = ((codes[pos] + rng.integers(1, 4, n_snp)) % 4).astype(np.uint8)
     stype = ((1 << codes[pos]) | (1 << alt) | (codes[pos] << 4)).astype(np.uint8)
-    idx = build_index_from_data([("chr1", "synt", lut[codes])],
-                                [SnpBlock("chr1", pos.astype(np.uint32), stype)],
-                                l_seed=19)
+    weight = np.arange(N_CONTIGS) % 3 + 2
+    bounds = np.concatenate([[0], np.cumsum(weight) * genome_len
+                             // weight.sum()]).astype(np.int64)
+    contig_data, blocks = [], []
+    for c in range(N_CONTIGS):
+        lo, hi = bounds[c], bounds[c + 1]
+        own = (pos >= lo) & (pos < hi)
+        contig_data.append((f"chr{c + 1}", "synt", lut[codes[lo:hi]]))
+        blocks.append(SnpBlock(f"chr{c + 1}", (pos[own] - lo).astype(np.uint32),
+                               stype[own]))
     hap = codes.copy()
     hap[pos] = alt
-    return idx, hap
+    return contig_data, blocks, bounds, hap, codes, pos, alt
+
+
+def make_index(genome_len, snp_every, rng):
+    """One monolithic index and the N_SHARDS sub-indexes of contiguous
+    bins, built side by side in threads (the native suffix sort runs
+    outside the interpreter lock).  Returns (index, shard indexes, bins,
+    contig bounds, SNP haplotype)."""
+    contig_data, blocks, bounds, hap, *_ = make_genome(genome_len, snp_every, rng)
+    bins = partition_contigs_contiguous([len(c[2]) for c in contig_data],
+                                        N_SHARDS)
+    t0 = time.perf_counter()
+
+    def build(members):
+        t = time.perf_counter()
+        idx = build_index_from_data([contig_data[i] for i in members],
+                                    [blocks[i] for i in members], l_seed=19)
+        return idx, time.perf_counter() - t
+
+    with ThreadPoolExecutor(1 + N_SHARDS) as pool:
+        (idx, dt), *subs = pool.map(build, [list(range(N_CONTIGS))] + bins)
+    print(f"[index] {genome_len} bases in {N_CONTIGS} contigs, "
+          f"{genome_len // snp_every} SNPs: monolithic host build {dt:.1f} s; "
+          f"{N_SHARDS} sub-indexes over contig bins {bins} of "
+          f"{[s.l_pac for s, _ in subs]} bases: "
+          f"{[round(t, 1) for _, t in subs]} s; all side by side in "
+          f"{1 + N_SHARDS} threads {time.perf_counter() - t0:.1f} s", flush=True)
+    return idx, [s for s, _ in subs], bins, bounds, hap
+
+
+def contig_local(starts, bounds):
+    """Genome positions as positions within their contig, as SAM gives
+    them."""
+    return starts - bounds[np.searchsorted(bounds, starts, side="right") - 1]
+
+
+def keep_inside(starts, span, bounds):
+    """`starts` moved so that [start, start + span) lies in one contig,
+    EDGE bases from its ends (see EDGE)."""
+    c = np.searchsorted(bounds, starts, side="right") - 1
+    return np.clip(starts, bounds[c] + EDGE, bounds[c + 1] - span - EDGE)
 
 
 def read_seqs(hap, starts, flip, L, rng, sub_rate=0.001, indel_frac=0.1,
@@ -736,26 +838,26 @@ def read_seqs(hap, starts, flip, L, rng, sub_rate=0.001, indel_frac=0.1,
     return [seqs[i].tobytes().decode("latin1") for i in range(n)]
 
 
-def simulate_reads(hap, n, L, rng):
-    """SE reads, half from the reverse strand.  Returns (records, true
-    leftmost positions)."""
-    starts = rng.integers(0, len(hap) - L - 8, n)
+def simulate_reads(hap, bounds, n, L, rng):
+    """SE reads, half from the reverse strand, each inside one contig.
+    Returns (records, true leftmost positions within the contig)."""
+    starts = keep_inside(rng.integers(0, len(hap) - L - 8, n), L + 8, bounds)
     seqs = read_seqs(hap, starts, rng.random(n) < 0.5, L, rng)
     recs = [SeqRecord(f"r{i}_{starts[i]}", None, seqs[i], "I" * L)
             for i in range(n)]
-    return recs, starts
+    return recs, contig_local(starts, bounds)
 
 
-def simulate_pairs(hap, n, L, rng):
-    """FR pairs with insert size normal(400, 30); 5% with one end
-    carrying 15 substitutions (singleton rescue) and 3% with the ends
-    2,000 bp apart (pair2 rescue).  Returns (first-end records,
-    second-end records, (n, 2) true leftmost positions)."""
+def simulate_pairs(hap, bounds, n, L, rng):
+    """FR pairs, each inside one contig, insert size normal(400, 30); 5%
+    with one end carrying 15 substitutions (singleton rescue) and 3% with
+    the ends 2,000 bp apart (pair2 rescue).  Returns (first-end records,
+    second-end records, (n, 2) true leftmost positions within the contig)."""
     ins = np.clip(rng.normal(400, 30, n).round().astype(np.int64), 2 * L, 600)
     kind = rng.random(n)
     far = (kind >= 0.05) & (kind < 0.08)
     span = np.where(far, 2000 + L, ins)
-    left = rng.integers(0, len(hap) - 2700, n)
+    left = keep_inside(rng.integers(0, len(hap) - 2700, n), 2700, bounds)
     right = left + span - L
     heavy_end = rng.integers(0, 2, n)
     swap = rng.random(n) < 0.5                 # which end is the forward one
@@ -767,7 +869,7 @@ def simulate_pairs(hap, n, L, rng):
                          heavy=(kind < 0.05) & (heavy_end == e))
         ends.append([SeqRecord(f"p{i}_{starts[i, 0]}_{starts[i, 1]}/{e + 1}",
                                None, seqs[i], "I" * L) for i in range(n)])
-    return ends[0], ends[1], starts
+    return ends[0], ends[1], contig_local(starts, bounds)
 
 
 def accuracy(sam, truth):
@@ -794,8 +896,25 @@ def note_sw_batches(al, sent):
     al._sw_scores = noting
 
 
+LV_SENT = []    # (candidates, L, k) of every K1 call of the gapped step
+LV_SHAPES = {}  # report_run's tag -> the distinct shapes of that timed run
+
+
+def note_lv_batches():
+    """Wraps the gapped step's K1 call so that each appends its shape to
+    LV_SENT (reset_counts empties it)."""
+    lv = se_mod.lv_distance_batch
+
+    def noting(words, pos, active, seq, k, **kw):
+        LV_SENT.append((pos.shape[0], seq.shape[1], k))
+        return lv(words, pos, active, seq, k, **kw)
+
+    se_mod.lv_distance_batch = noting
+
+
 def reset_counts():
     metrics_reset()
+    del LV_SENT[:]
     for kern in KERNELS.values():
         kern.launches = 0
 
@@ -809,6 +928,7 @@ def report_run(tag, n, unit, dt, need):
     for name, (tot, cnt) in sorted(metrics().items(), key=lambda kv: -kv[1][0]):
         print(f"[{tag}]   {name:<22} {tot:9.3f} s  {cnt:5d} calls", flush=True)
     print(f"[{tag}] kernel launches in the timed run: {counts}", flush=True)
+    LV_SHAPES[tag] = sorted(set(LV_SENT))
     for name in need:
         if counts[name] == 0:
             raise AssertionError(f"the {tag} run never launched {name}")
@@ -886,13 +1006,13 @@ def x1_phase(idx, recs, truth, dev, sent):
     off = SEAligner(idx, dataclasses.replace(opts, device_sw="off"), device=dev)
     assert_same_sam("x1", f"pre-filter off, {CPU_CHECK} reads on the card",
                     off.align_records(recs[:CPU_CHECK]), warm[:CPU_CHECK])
-    return counts
+    return counts, warm
 
 
-def pe_phase(idx, hap, dev, sent):
+def pe_phase(idx, hap, bounds, dev, sent):
     rng = np.random.default_rng(SEED + 2)
     n = PE_CHUNK * (1 + N_TIMED_SW)
-    r1, r2, truth = simulate_pairs(hap, n, READ_LEN, rng)
+    r1, r2, truth = simulate_pairs(hap, bounds, n, READ_LEN, rng)
     kw = dict(l_overlap=1, max_locate=500, print_nm_md=True,
               print_xa_cigar=True, batch_size=BATCH, gap_batch=128)
     al = PEAligner(idx, PEOptions(device_sw="auto", **kw), device=dev)
@@ -944,7 +1064,7 @@ def pe_phase(idx, hap, dev, sent):
     return counts, (r1[:PE_CHUNK], r2[:PE_CHUNK], kw), warm, out
 
 
-def busy_share(al, recs):
+def busy_share(al, recs, tag="se"):
     """Device busy share of one more batch: device time of every kernel
     and copy in a torch.profiler trace over the host-clock wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -957,10 +1077,11 @@ def busy_share(al, recs):
         wall = time.perf_counter() - t0
     events = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"[se] profiled batch of {len(recs)} reads: wall {wall:.3f} s, "
-          f"device busy {busy:.4f} s = {busy / wall:.2%}", flush=True)
+    print(f"[{tag}] profiled batch of {len(recs)} reads: wall {wall:.3f} s, "
+          f"device busy {busy:.4f} s = {busy / wall:.2%}, "
+          f"{sum(e.count for e in events)} kernels and copies", flush=True)
     for e in events[:8]:
-        print(f"[se]   {e.self_device_time_total / 1e3:9.3f} ms  "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  "
               f"{e.count:6d}x  {e.key[:70]}", flush=True)
 
 
@@ -1004,32 +1125,38 @@ def resolver_check(idx, al, dev):
         raise AssertionError("the ranks planted on a '#' are not on one")
 
 
+def rate_turns(tag, first, second, recs):
+    """The reads through two warm aligners (name, aligner) in turns first,
+    second, second, first within one process: two rates are compared
+    here, not across phases that ran minutes apart on a shared host.
+    Returns the four rates."""
+    rates = []
+    for name, al in (first, second, second, first):
+        metrics_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        al.align_records(recs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stages = metrics()
+        rates.append(len(recs) / dt)
+        print(f"[{tag}] turn {name:<10}: {len(recs)} reads in {dt:.3f} s = "
+              f"{rates[-1]:.1f} reads/s; device.dispatch "
+              f"{stages['device.dispatch'][0]:.3f} s, host.finalize "
+              f"{stages['host.finalize'][0]:.3f} s", flush=True)
+    print(f"[{tag}] {second[0]} over {first[0]}, means of the turns: "
+          f"{(rates[1] + rates[2]) / (rates[0] + rates[3]):.4f}", flush=True)
+    return rates
+
+
 def mode_turns(idx, al_sampled, opts, recs, dev):
-    """The timed reads through full mode, sampled mode, sampled mode and
-    full mode in turns, on warm aligners within one process: the two
-    modes' rates are compared here, not across phases that ran minutes
-    apart on a shared host."""
+    """Full and sampled mode in turns on the timed reads."""
     al_full = SEAligner(idx, dataclasses.replace(opts, sa_mode="full"),
                         device=dev)
     timed_recs = recs[BATCH : BATCH * (1 + N_TIMED)]
     al_full.align_records(timed_recs[:BATCH])
-    rates = []
-    for name, al in (("full", al_full), ("sampled", al_sampled),
-                     ("sampled", al_sampled), ("full", al_full)):
-        metrics_reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        al.align_records(timed_recs)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        stages = metrics()
-        rates.append(len(timed_recs) / dt)
-        print(f"[sampled] turn {name:<7}: {len(timed_recs)} reads in {dt:.3f} s = "
-              f"{rates[-1]:.1f} reads/s; device.dispatch "
-              f"{stages['device.dispatch'][0]:.3f} s, host.finalize "
-              f"{stages['host.finalize'][0]:.3f} s", flush=True)
-    print(f"[sampled] sampled over full mode, means of the turns: "
-          f"{(rates[1] + rates[2]) / (rates[0] + rates[3]):.4f}", flush=True)
+    rate_turns("sampled", ("full", al_full), ("sampled", al_sampled),
+               timed_recs)
 
 
 def sampled_phase(idx, recs, truth, dev, full_bytes, se_sam, pe_reads, pe_sam):
@@ -1140,6 +1267,346 @@ def polish_phase(idx, se_sam, pe_sam, dev):
     finally:
         polish_mod.lv_distance_batch = lv
     return launches, largest
+
+
+# ---------------------------------------------------------------- sharded
+
+
+def sharded_se_phase(idx, shards, bins, recs, truth, dev, se_sam, mono_bytes):
+    """The sharded aligner, every shard on the one card, on the SE phase's
+    reads: SAM equal to the monolithic aligner's, K1 in every timed batch,
+    the two aligners in turns, the busy share of one batch, the CPU's SAM
+    on a prefix.  Returns the timed run's launch counts."""
+    tag = "sharded se"
+    torch.cuda.reset_peak_memory_stats()
+    opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
+                     print_xa_cigar=True, batch_size=BATCH, gap_batch=128)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    al = ShardedSEAligner(idx, shards, opts, devices=[dev], bins=bins)
+    torch.cuda.synchronize()
+    sizes = [d.table_bytes() for d in al.stacked.shards]
+    print(f"[{tag}] {N_SHARDS} sub-indexes to {al.devices}: "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() - held} bytes of device memory "
+          f"(tables {sizes}, {sum(sizes)} in all; the monolithic index "
+          f"{mono_bytes}); base offsets {al.stacked.base_offsets.tolist()}",
+          flush=True)
+    per_batch, complete = [], al._complete_batch
+
+    def counting(handle):
+        before = LV.launches
+        done = complete(handle)
+        per_batch.append(LV.launches - before)
+        return done
+
+    al._complete_batch = counting
+    t0 = time.perf_counter()
+    warm = al.align_records(recs[:BATCH])
+    print(f"[{tag}] warm-up batch: {time.perf_counter() - t0:.2f} s", flush=True)
+    timed_recs = recs[BATCH : BATCH * (1 + N_TIMED)]
+    reset_counts()
+    del per_batch[:]
+    t0 = time.perf_counter()
+    out = al.align_records(timed_recs)
+    torch.cuda.synchronize()
+    counts = report_run(tag, len(out), "reads", time.perf_counter() - t0,
+                        ("lv_distance",))
+    print(f"[{tag}] K1 launches a timed batch: {per_batch}; shapes "
+          f"(candidates, L, k): {LV_SHAPES[tag]}", flush=True)
+    if len(per_batch) != N_TIMED or min(per_batch) == 0:
+        raise AssertionError(f"{tag}: a timed batch never launched K1")
+    mapped, correct = accuracy(out, truth[BATCH : BATCH + len(out)])
+    print(f"[{tag}] mapped {mapped:.4%}, within 5 bp of truth {correct:.4%} of "
+          f"mapped; peak device memory {torch.cuda.max_memory_allocated()} "
+          f"bytes", flush=True)
+    assert_same_sam(tag, "warm-up batch against the monolithic aligner",
+                    se_sam[0], warm)
+    assert_same_sam(tag, "timed batches against the monolithic aligner",
+                    se_sam[1], out)
+    al._complete_batch = complete
+    mono = SEAligner(idx, opts, device=dev)
+    mono.align_records(timed_recs[:BATCH])
+    rate_turns(tag, ("monolithic", mono), ("sharded", al), timed_recs)
+    del mono
+    busy_share(al, recs[BATCH : 2 * BATCH], tag)
+    del al
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = ShardedSEAligner(idx, shards, opts, devices=["cpu"],
+                           bins=bins).align_records(recs[:CPU_CHECK])
+    assert_same_sam(tag, f"CPU rerun of {CPU_CHECK} reads "
+                    f"({time.perf_counter() - t0:.1f} s)", cpu, warm[:CPU_CHECK])
+    return counts
+
+
+def sharded_sw_phases(idx, shards, bins, recs, dev, x1_warm, pe_reads, pe_warm,
+                      sent):
+    """One -X 1 batch and one PE chunk on the sharded index, SAM equal to
+    the monolithic phases'; K2 launched on both, in both modes on PE.
+    `sent` receives the K2 shapes.  Returns {path: launch counts}."""
+    done = {}
+    opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
+                     print_xa_cigar=True, batch_size=BATCH, gap_batch=128,
+                     extend_algo="sw", device_sw="auto")
+    al = ShardedSEAligner(idx, shards, opts, devices=[dev], bins=bins)
+    note_sw_batches(al, sent["sharded_x1"])
+    reset_counts()
+    t0 = time.perf_counter()
+    out = al.align_records(recs[:BATCH])
+    torch.cuda.synchronize()
+    counts = report_run("sharded x1", len(out), "reads",
+                        time.perf_counter() - t0, ("sw_score",))
+    assert_same_sam("sharded x1", "one batch against the monolithic -X 1 "
+                    "aligner", x1_warm, out)
+    done["sharded_x1"] = counts
+    del al
+    torch.cuda.empty_cache()
+
+    r1, r2, kw = pe_reads
+    pe = ShardedPEAligner(idx, shards, PEOptions(device_sw="auto", **kw),
+                          devices=[dev], bins=bins)
+    note_sw_batches(pe._se, sent["sharded_pe"])
+    assert_same_sam("sharded pe", "first chunk against the monolithic PE "
+                    "aligner", pe_warm, pe.align_pairs(r1, r2))
+    reset_counts()
+    del sent["sharded_pe"][:]
+    t0 = time.perf_counter()
+    out = pe.align_pairs(r1, r2)
+    torch.cuda.synchronize()
+    counts = report_run("sharded pe", len(out) // 2, "pairs",
+                        time.perf_counter() - t0, ("lv_distance", "sw_score"))
+    assert_same_sam("sharded pe", "the same chunk again", pe_warm, out)
+    if {c[0] for c in sent["sharded_pe"]} != {True, False}:
+        raise AssertionError("sharded pe: SW kernel did not run in both modes")
+    done["sharded_pe"] = counts
+    return done
+
+
+def sharded_step_phase(idx, shards, bins, bounds, recs, dev):
+    """The ungapped sharded step as its callers write it, with the default
+    devices (every visible card): the tables land on the card, and the
+    merged primaries and hit lists equal the monolithic ungapped step's."""
+    codes = encode_reads([r.seq for r in recs[:MESH_READS]])
+    fwd, rev = torch.from_numpy(codes), torch.from_numpy(revcomp(codes))
+    kw = dict(l_overlap=1, max_seed=50, max_locate=500, cap=640, u=64,
+              k_hits=8)
+    stacked = stack_indexes(shards, bins, contig_lengths=np.diff(bounds))
+    if {d.type for d in stacked.devices} != {"cuda"}:
+        raise AssertionError(f"sharded step: tables on {stacked.devices}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found, pos, strand, n_diff, shard, hpos, hnd, _n, trunc = sharded_se_step(
+        stacked, fwd, rev, return_hits=True, **kw)
+    dt = time.perf_counter() - t0
+    want = se_mod.se_ungapped(to_device_index(idx, dev), fwd.to(dev),
+                              rev.to(dev), **kw).res
+    merged = merge_sharded_hits(hpos, hnd, NOGAP_MAX_DIFF, kw["k_hits"])
+    w_found = want.found.cpu().numpy()
+    bad = [name for name, got, keep in (
+        ("found", found, slice(None)), ("pos", pos, slice(None)),
+        ("n_diff", n_diff, slice(None)), ("strand", strand, w_found),
+        ("merged found", merged["found"], slice(None)),
+        ("hits_pos", merged["hits_pos"], slice(None)),
+        ("hits_ndiff", merged["hits_ndiff"], slice(None)),
+        ("n_hits", merged["n_hits"], slice(None)))
+        if not np.array_equal(
+            np.asarray(got).astype(np.int64)[keep],
+            getattr(want, name.split()[-1]).cpu().numpy()[keep])]
+    print(f"[sharded step] sharded_se_step on default devices "
+          f"{sorted(set(map(str, stacked.devices)))}: {MESH_READS} reads in "
+          f"{dt * 1e3:.1f} ms, found {int(found.sum())}, winners a shard "
+          f"{np.bincount(shard[found], minlength=N_SHARDS).tolist()}, "
+          f"truncated lists {int(trunc.sum())}; differ from the monolithic "
+          f"ungapped step: {bad or 'nothing'}", flush=True)
+    if bad or trunc.any() or not found.any():
+        raise AssertionError(f"sharded step: {bad} differ from monolithic")
+
+
+def check_lv_shapes(dev):
+    """K1 against its plain version at every (candidates, L, k) a sharded
+    path's timed run sent it that no monolithic path's had, and at the
+    largest the sharded paths sent."""
+    by_path = {tag: shapes for tag, shapes in LV_SHAPES.items() if shapes}
+    mono = {sh for path, shapes in by_path.items()
+            if not path.startswith("sharded") for sh in shapes}
+    sharded = {sh for path, shapes in by_path.items()
+               if path.startswith("sharded") for sh in shapes}
+    rng = np.random.default_rng(SEED + 7)
+    n_ref = 2_000_000
+    words = torch.from_numpy(pack_nibbles(one_hot_reference(rng, n_ref))
+                             .view(np.int32)).to(dev)
+    todo = sorted((sharded - mono) | {max(sharded)})
+    for N, L, k in todo:
+        pos = torch.from_numpy(rng.integers(0, n_ref - L - 80, N)).to(dev)
+        check_kernel_case(words, pos, k, L, rng, dev)
+    print(f"[kernel] lv shapes (candidates, L, k) by path: {by_path}; sent by "
+          f"the sharded paths only: {sorted(sharded - mono)}; held against "
+          f"the plain version: {todo}: equal", flush=True)
+
+
+def fast_cap_phase(idx, recs, dev, se_warm):
+    """One batch with fast_cap=64: SAM equal to one locate tier's, the
+    rows located again at the full cap, and the two in turns.  Returns
+    (launch counts, the one-tier aligner)."""
+    opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
+                     print_xa_cigar=True, batch_size=BATCH, gap_batch=128)
+    one = SEAligner(idx, opts, device=dev)
+    two = SEAligner(idx, dataclasses.replace(opts, fast_cap=64), device=dev)
+    rerun, again = two._rerun_overflowed, []
+
+    def counting(fwd, rev, out, sel):
+        again.append(int(sel.numel()))
+        return rerun(fwd, rev, out, sel)
+
+    two._rerun_overflowed = counting
+    batch = recs[:BATCH]
+    one.align_records(batch)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = two.align_records(batch)
+    torch.cuda.synchronize()
+    counts = report_run("fast_cap", len(out), "reads",
+                        time.perf_counter() - t0, ("lv_distance",))
+    print(f"[fast_cap] first pass at {two.opts.cap()} slots, full cap "
+          f"{two.opts.full_cap()}: {sum(again)} of {len(batch)} rows located "
+          f"again in {len(again)} sub-batches", flush=True)
+    if not again:
+        raise AssertionError("fast_cap: no row was located again")
+    assert_same_sam("fast_cap", "fast_cap=64 against one tier", se_warm, out)
+    del again[:]
+    rate_turns("fast_cap", ("one tier", one), ("fast_cap=64", two), batch)
+    return counts, one
+
+
+def mesh_phase(dix, recs, dev):
+    """The data-parallel step over make_mesh() (the one card) and over the
+    card named twice, each equal to the unsplit step.  Returns the launch
+    counts of the run over two entries."""
+    codes = encode_reads([r.seq for r in recs[:MESH_READS]])
+    fwd = torch.from_numpy(codes).to(dev)
+    rev = torch.from_numpy(revcomp(codes)).to(dev)
+    kw = dict(l_overlap=1, max_seed=50, max_locate=500, cap=640, u=64,
+              k_hits=8)
+    want_u = se_mod.se_ungapped(dix, fwd, rev, **kw)
+    want_g = se_mod.se_gapped(dix, fwd, rev, want_u.loci0, want_u.loci1, k=10,
+                              u=64, k_hits=8)
+
+    def flat(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        return [t for field in tree for t in flat(field)]
+
+    want = flat(want_u) + flat(want_g)
+    counts = {}
+    for name, mesh in (("make_mesh()", make_mesh()), ("the card twice",
+                                                      [dev, dev])):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_u, got_g = sharded_full_step(mesh, dix, fwd, rev, gap_k=10, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = flat(got_u) + flat(got_g)
+        n_bad = sum(not torch.equal(g, w) for g, w in zip(got, want))
+        counts = {n: kern.launches for n, kern in KERNELS.items()}
+        print(f"[mesh] sharded_full_step over {name} = {mesh}: "
+              f"{MESH_READS} reads in {dt * 1e3:.1f} ms, {n_bad} of {len(want)} "
+              f"result tensors differ from the unsplit step; K1 launches "
+              f"{counts['lv_distance']}, found ungapped "
+              f"{int(got_u.res.found.sum())}, gapped {int(got_g.res.found.sum())}",
+              flush=True)
+        if n_bad or len(got) != len(want) or counts["lv_distance"] != len(mesh):
+            raise AssertionError(f"mesh: the step over {name} differs")
+    return counts
+
+
+# ---------------------------------------------------------------- command line
+
+
+def cli_phase():
+    """idx --shards, aln, aln --shards, aln --part-dir twice and --merge,
+    and SALT_TPU_TRACE through the command line (default device: the
+    card) on a small genome in a temporary directory.  Returns the launch
+    counts of `aln --shards`."""
+    rng = np.random.default_rng(SEED + 6)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    contig_data, _blocks, bounds, hap, codes, pos, alt = make_genome(
+        CLI_GENOME_LEN, SNP_EVERY, rng)
+    recs, _truth = simulate_reads(hap, bounds, CLI_READS, READ_LEN, rng)
+
+    def run(argv, **env):
+        """The SAM records `argv` prints, with `env` set meanwhile."""
+        out = io.StringIO()
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            run.dt = time.perf_counter() - t0
+        finally:
+            for k in env:
+                del os.environ[k]
+        if rc != 0:
+            raise AssertionError(f"cli {argv} returned {rc}")
+        print(f"[cli] {' '.join(argv[:2] + argv[9:-2])}: {run.dt:.2f} s",
+              flush=True)
+        return [l for l in out.getvalue().splitlines() if not l.startswith("@")]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, snps, fq, prefix, parts, traces = (
+            os.path.join(tmp, n) for n in ("ref.fa", "snps.txt", "reads.fq",
+                                           "idx", "parts", "traces"))
+        with open(fa, "wb") as fh:
+            for name, anno, seq in contig_data:
+                fh.write(f">{name} {anno}\n".encode() + seq.tobytes() + b"\n")
+        with open(snps, "w") as fh:
+            c = np.searchsorted(bounds, pos, side="right") - 1
+            for p, ci, ref, a in zip(pos.tolist(), c.tolist(),
+                                     codes[pos].tolist(), alt.tolist()):
+                fh.write(f"chr{ci + 1}\t{p - bounds[ci] + 1}\t"
+                         f"{'/'.join(sorted('ACGT'[x] for x in (ref, a)))}\t"
+                         f"{'ACGT'[ref]}\n")
+        with open(fq, "w") as fh:
+            for r in recs:
+                fh.write(f"@{r.name}\n{r.seq}\n+\n{r.qual}\n")
+        aln = ["aln", "-d", "-c", "-r", "1", "-m", "500", "--batch-size", "2048"]
+        run(["idx", "-k", "19", "--shards", str(N_SHARDS), fa, snps, prefix])
+        plain = run(aln + [prefix, fq])
+        if len(plain) != CLI_READS or sum(l.split("\t")[2] != "*"
+                                          for l in plain) < 0.9 * CLI_READS:
+            raise AssertionError("cli: aln mapped too few reads")
+        reset_counts()
+        sharded = run(aln + ["--shards", str(N_SHARDS), prefix, fq])
+        counts = report_run("cli", len(sharded), "reads (aln --shards, index "
+                            "load included)", run.dt, ("lv_distance",))
+        assert_same_sam("cli", f"aln --shards {N_SHARDS} against aln", plain,
+                        sharded)
+        for pid in (0, 1):
+            run(aln + ["--part-dir", parts, "--shard-batch", "1024", prefix, fq],
+                SALT_TPU_NUM_PROCESSES="2", SALT_TPU_PROCESS_ID=str(pid))
+            want = [f"part_{i:08d}.sam" for i in range(4) if i % 2 <= pid]
+            if sorted(os.listdir(parts)) != sorted(want):
+                raise AssertionError(f"cli: parts {os.listdir(parts)} after "
+                                     f"process {pid}")
+        assert_same_sam("cli", "--part-dir as processes 0 and 1 of 2, --merge, "
+                        "against aln", plain,
+                        run(aln + ["--part-dir", parts, "--merge", prefix, fq]))
+        traced = run(aln + [prefix, fq], SALT_TPU_TRACE=traces)
+        assert_same_sam("cli", "aln under SALT_TPU_TRACE against aln", plain,
+                        traced)
+        files = sorted(os.listdir(os.path.join(traces, "se_batch")))
+        n_kernel = 0
+        for name in files:
+            with open(os.path.join(traces, "se_batch", name)) as fh:
+                n_kernel += sum(e.get("cat") == "kernel"
+                                for e in json.load(fh)["traceEvents"])
+        print(f"[cli] SALT_TPU_TRACE: {len(files)} Chrome traces (one a "
+              f"batch), {n_kernel} CUDA kernel events", flush=True)
+        if len(files) != CLI_READS // 2048 or n_kernel == 0:
+            raise AssertionError("cli: the trace holds no CUDA kernel event")
+    return counts
 
 
 # ---------------------------------------------------------------- main
@@ -1279,13 +1746,12 @@ def main() -> int:
           f"{sw_long['bound_ms']:.6f} ms by {sw_long['bound_by']}", flush=True)
 
     rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    idx, hap = make_index(GENOME_LEN, SNP_EVERY, rng)
-    print(f"[index] {GENOME_LEN} bases, {GENOME_LEN // SNP_EVERY} SNPs, host "
-          f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    recs, truth = simulate_reads(hap, BATCH * (1 + N_TIMED), READ_LEN, rng)
+    idx, shards, bins, bounds, hap = make_index(GENOME_LEN, SNP_EVERY, rng)
+    recs, truth = simulate_reads(hap, bounds, BATCH * (1 + N_TIMED), READ_LEN,
+                                 rng)
 
     launches = {name: {} for name in KERNELS}
+    note_lv_batches()
 
     def note(path, counts):
         for name, c in counts.items():
@@ -1296,12 +1762,31 @@ def main() -> int:
     note("se_lv", counts)
     busy_share(al, recs[BATCH : 2 * BATCH])
     full_bytes = al.dix.sa_cat.numel() * al.dix.sa_cat.element_size()
+    mono_bytes = al.dix.table_bytes()
     del al
-    sent = {"se_x1": [], "pe": []}
-    note("se_x1", x1_phase(idx, recs, truth, dev, sent["se_x1"]))
-    counts, pe_reads, pe_warm, pe_out = pe_phase(idx, hap, dev, sent["pe"])
+    sent = {"se_x1": [], "pe": [], "sharded_x1": [], "sharded_pe": []}
+    counts, x1_warm = x1_phase(idx, recs, truth, dev, sent["se_x1"])
+    note("se_x1", counts)
+    counts, pe_reads, pe_warm, pe_out = pe_phase(idx, hap, bounds, dev,
+                                                 sent["pe"])
     note("pe", counts)
+    torch.cuda.empty_cache()
+    note("sharded_se", sharded_se_phase(idx, shards, bins, recs, truth, dev,
+                                        (se_warm, se_out), mono_bytes))
+    for path, counts in sharded_sw_phases(idx, shards, bins, recs, dev, x1_warm,
+                                          pe_reads, pe_warm, sent).items():
+        note(path, counts)
+    sharded_step_phase(idx, shards, bins, bounds, recs, dev)
+    del shards
+    torch.cuda.empty_cache()
+    check_lv_shapes(dev)
     sw_sent = time_sw_path_batches(sent, dev, ops_per_s)
+    counts, one_tier = fast_cap_phase(idx, recs, dev, se_warm)
+    note("fast_cap", counts)
+    note("mesh", mesh_phase(one_tier.dix, recs, dev))
+    del one_tier
+    torch.cuda.empty_cache()
+    note("cli_shards", cli_phase())
     torch.cuda.empty_cache()
     for path, counts in sampled_phase(idx, recs, truth, dev, full_bytes,
                                       (se_warm, se_out), pe_reads,

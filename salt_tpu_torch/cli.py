@@ -1,21 +1,30 @@
-"""Command-line entry points of the port: `idx`, `aln` and `polish`.
+"""Command-line entry points of the port.
 
-    python -m salt_tpu_torch.cli idx [-k 25] ref.fa snps.txt prefix
+    python -m salt_tpu_torch.cli idx [-k 25] [--shards N] ref.fa snps.txt prefix
     python -m salt_tpu_torch.cli aln [-d] [-c] [-r N] [-s N] [-m N] [-g RG]
                                      [-X 0|1] [--sa-mode full|sampled]
-                                     [--device cuda|cpu] prefix reads.fq
+                                     [--shards N] [--device cuda|cpu]
+                                     prefix reads.fq
     python -m salt_tpu_torch.cli aln -p [-a MIN_TLEN] [-b MAX_TLEN] ...
                                      prefix R1.fq R2.fq
+    python -m salt_tpu_torch.cli aln --part-dir DIR [--shard-batch N] ...
+    python -m salt_tpu_torch.cli aln --part-dir DIR --merge prefix reads.fq
     python -m salt_tpu_torch.cli polish [-s] [-p] [--device cuda|cpu]
                                      prefix aln.sam
+    python -m salt_tpu_torch.cli wgsim | snp-etl | alneval | readtools ...
 
 `aln` runs single-end alignment (Landau-Vishkin extension, or
 Smith-Waterman with -X 1) or, with -p or two read files, paired-end
 alignment, in full or sampled suffix-array mode on --device (default
-cuda; asking for cuda without a GPU is an error).  `polish` re-scores
-the multi-hits of a salt SAM (Landau-Vishkin on --device, or host SSW
-with -s).  Option handling mirrors salt_tpu/cli.py; options of paths
-that are not ported yet exit with a message.
+cuda; asking for cuda without a GPU is an error).  With --shards it
+aligns against the sub-indexes `idx --shards N` built, one per reference
+bin, spread over every visible CUDA device (all on the one device when
+there is one, or on the CPU with --device cpu).  With --part-dir it
+writes one SAM part per batch of --shard-batch reads for the batches
+that are this process's (SALT_TPU_PROCESS_ID of SALT_TPU_NUM_PROCESSES),
+and --merge joins the parts in input order.  `polish` re-scores the
+multi-hits of a salt SAM (Landau-Vishkin on --device, or host SSW with
+-s).  Option handling mirrors salt_tpu/cli.py.
 """
 
 from __future__ import annotations
@@ -23,23 +32,37 @@ from __future__ import annotations
 import argparse
 import sys
 
-
-def _not_ported(what: str) -> int:
-    print(f"[aln] {what} is not ported to salt_tpu_torch yet (see "
-          "ROADMAP.md); use `python -m salt_tpu.cli` for it",
-          file=sys.stderr)
-    return 2
+# subcommands that hand their arguments on untouched; they are dispatched
+# before argparse, which would not let a leading option flag through
+_PASS_THROUGH = {
+    "wgsim": ("sim.wgsim", "wgsim_main"),
+    "snp-etl": ("etl.snp_etl", "_main"),
+    "alneval": ("eval.wgsim_eval", "_main"),
+    "readtools": ("eval.readtools", "readtools_main"),
+}
 
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    ap = argparse.ArgumentParser(prog="salt-tpu-torch")
+    if argv and argv[0] in _PASS_THROUGH:
+        import importlib
+
+        module, entry = _PASS_THROUGH[argv[0]]
+        return getattr(importlib.import_module(f"{__package__}.{module}"),
+                       entry)(argv[1:])
+    ap = argparse.ArgumentParser(
+        prog="salt-tpu-torch",
+        epilog="further subcommands, with options of their own: "
+               + ", ".join(sorted(_PASS_THROUGH)))
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     ix = sub.add_parser("idx", help="build SNP-aware index")
     ix.add_argument("-k", "--seed-len", type=int, default=25)
     ix.add_argument("--compat-rpart", action="store_true",
                     help="reproduce the reference's broken R-part anchors")
+    ix.add_argument("--shards", type=int, default=0,
+                    help="also build N per-reference-bin sub-indexes "
+                         "(contiguous contig runs) for `aln --shards N`")
     ix.add_argument("ref_fa")
     ix.add_argument("snp_file")
     ix.add_argument("prefix")
@@ -59,11 +82,31 @@ def main(argv=None):
     al.add_argument("-p", "--pe", action="store_true")
     al.add_argument("-a", "--min-tlen", type=int, default=250)
     al.add_argument("-b", "--max-tlen", type=int, default=550)
+    al.add_argument("-e", "--sw", action="store_true")
     al.add_argument("-X", "--extend", type=int, default=0,
                     help="extension algorithm: 0=Landau-Vishkin, 1=SW")
+    # accepted for drop-in compatibility; parsed but dead in the
+    # reference too (aln.c:183,190-196 set fields no code reads)
+    al.add_argument("-v", "--ref", action="store_true",
+                    help=argparse.SUPPRESS)
+    al.add_argument("-M", "--mismatch", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    al.add_argument("-O", "--gapop", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    al.add_argument("-E", "--gapex", type=int, default=None,
+                    help=argparse.SUPPRESS)
     al.add_argument("--batch-size", type=int, default=4096)
     al.add_argument("--sa-mode", choices=["full", "sampled"], default="full")
-    al.add_argument("--shards", type=int, default=0)
+    al.add_argument("--shards", type=int, default=0,
+                    help="align against an index sharded by reference bin "
+                         "(built with idx --shards N), the shards spread "
+                         "over the visible devices")
+    al.add_argument("--part-dir", default=None,
+                    help="multi-host mode: write per-batch SAM parts here")
+    al.add_argument("--shard-batch", type=int, default=100000,
+                    help="reads per part (multi-host granularity)")
+    al.add_argument("--merge", action="store_true",
+                    help="merge part-dir into SAM on stdout and exit")
     al.add_argument("--device", default="cuda",
                     help="torch device to align on (default: cuda)")
     al.add_argument("index_prefix")
@@ -100,13 +143,27 @@ def main(argv=None):
         save_index(build_index_from_data(contig_data, blocks,
                                          l_seed=args.seed_len,
                                          r_anchor_mode=mode), args.prefix)
+        if args.shards > 0:
+            import json
+
+            from .parallel.sharded import partition_contigs_contiguous
+
+            bins = partition_contigs_contiguous(
+                [len(c[2]) for c in contig_data], args.shards)
+            for si, b in enumerate(bins):
+                save_index(build_index_from_data(
+                    [contig_data[i] for i in b],
+                    [blocks[i] for i in b if i < len(blocks)],
+                    l_seed=args.seed_len, r_anchor_mode=mode,
+                ), f"{args.prefix}.shard{si}")
+            with open(args.prefix + ".shards.json", "w") as fh:
+                json.dump({"n_shards": args.shards, "bins": bins}, fh)
         return 0
 
-    if args.shards > 0:
-        return _not_ported("the sharded aligner (--shards)")
     if args.threads != 1:
         print(f"[aln] -t {args.threads} ignored: batches are data-parallel "
-              "on the device", file=sys.stderr)
+              f"on the device ({args.device}); use --part-dir + multiple "
+              "processes to scale hosts", file=sys.stderr)
     if args.num != -1:
         print("[aln] -n is inert (the reference overwrites max_diff "
               "internally, alnse.c:1016,1090); accepted for compatibility",
@@ -118,6 +175,20 @@ def main(argv=None):
     from .index.store import load_index
 
     idx = load_index(args.index_prefix)
+    cmd = " ".join(["salt-tpu-torch"] + argv)
+    paired = bool(args.pe or args.read2)
+    if args.merge:
+        from .io.sam import sam_header
+        from .parallel.driver import merge_parts
+
+        if not args.part_dir:
+            ap.error("--merge needs --part-dir")
+        merge_parts(args.part_dir, sys.stdout,
+                    sam_header(idx, cmd, args.group))
+        return 0
+    if paired and not args.read2:
+        ap.error("paired-end alignment (-p) needs two read files")
+
     common = dict(
         l_overlap=args.overlap if args.overlap > 0 else idx.l_seed,
         max_seed=args.max_seed,
@@ -128,24 +199,61 @@ def main(argv=None):
         batch_size=args.batch_size,
         sa_mode=args.sa_mode,
     )
-    cmd = " ".join(["salt-tpu-torch"] + argv)
-    if args.pe or args.read2:
-        if not args.read2:
-            ap.error("paired-end alignment (-p) needs two read files")
-        from .pipeline.pe_engine import PEAligner, PEOptions
+    if paired:
+        from .pipeline.pe_engine import PEOptions
 
         opts = PEOptions(min_tlen=args.min_tlen, max_tlen=args.max_tlen,
                          **common)
-        PEAligner(idx, opts, device=args.device).align_files(
-            args.read1, args.read2, sys.stdout, cmd=cmd)
-        return 0
+    else:
+        from .pipeline.engine import SEOptions
 
-    from .pipeline.engine import SEAligner, SEOptions
+        opts = SEOptions(extend_algo="sw" if args.extend == 1 else "lv",
+                         **common)
+    al = _aligner(args, idx, opts, paired)
 
-    opts = SEOptions(extend_algo="sw" if args.extend == 1 else "lv", **common)
-    SEAligner(idx, opts, device=args.device).align_file(
-        args.read1, sys.stdout, cmd=cmd)
+    if args.part_dir:
+        from .parallel.driver import align_file_sharded, maybe_init_distributed
+
+        pid, npro = maybe_init_distributed()
+        align_file_sharded(al, args.read1, args.part_dir, pid, npro,
+                           batch_size=args.shard_batch, fastq2=args.read2)
+    elif paired:
+        al.align_files(args.read1, args.read2, sys.stdout, cmd=cmd)
+    else:
+        al.align_file(args.read1, sys.stdout, cmd=cmd)
     return 0
+
+
+def _aligner(args, idx, opts, paired: bool):
+    """The SE or PE aligner of `aln`: over one index on --device, or, with
+    --shards, over the sub-indexes that `idx --shards` saved."""
+    if args.shards <= 0:
+        if paired:
+            from .pipeline.pe_engine import PEAligner
+
+            return PEAligner(idx, opts, device=args.device)
+        from .pipeline.engine import SEAligner
+
+        return SEAligner(idx, opts, device=args.device)
+
+    import json
+
+    from .index.store import load_index
+    from .parallel.sharded_engine import ShardedPEAligner, ShardedSEAligner
+
+    with open(args.index_prefix + ".shards.json") as fh:
+        man = json.load(fh)
+    if man["n_shards"] != args.shards:
+        print(f"[aln] index was sharded {man['n_shards']}-way; "
+              f"using that (requested {args.shards})", file=sys.stderr)
+    shard_ixs = [load_index(f"{args.index_prefix}.shard{i}")
+                 for i in range(man["n_shards"])]
+    cls = ShardedPEAligner if paired else ShardedSEAligner
+    # "cuda" means every visible card; any other name, that one device
+    return cls(idx, shard_ixs, opts,
+               devices=None if args.device == "cuda" else args.device,
+               bins=man["bins"],
+               contig_lengths=[c.length for c in idx.contigs])
 
 
 if __name__ == "__main__":

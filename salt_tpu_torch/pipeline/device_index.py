@@ -45,6 +45,25 @@ class DeviceIndex:
     l_seed: int
     c_sa_len: int          # length of the csa part within sa_cat
 
+    def to(self, device) -> "DeviceIndex":
+        """The same tables on `device` (rank planes that share one tensor
+        still share one)."""
+        ri_c, ri_r = rank_indexes_to(device, self.ri_c, self.ri_r)
+        return replace(
+            self, ri_c=ri_c, ri_r=ri_r,
+            **{name: getattr(self, name).to(device)
+               for name in ("lkt", "r_lkt_sp", "r_lkt_ep", "sa_cat",
+                            "mixref_words")})
+
+    def table_bytes(self) -> int:
+        """Bytes of every tensor of the index, a shared one counted once."""
+        seen = {}
+        for t in (self.ri_c.bc, self.ri_c.cfreq, self.ri_r.bc, self.ri_r.cfreq,
+                  self.lkt, self.r_lkt_sp, self.r_lkt_ep, self.sa_cat,
+                  self.mixref_words):
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+        return sum(seen.values())
+
 
 def pack_nibbles(mixref: np.ndarray) -> np.ndarray:
     """uint8 nibbles -> uint32 words, little-endian within the word

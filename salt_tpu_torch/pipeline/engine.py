@@ -25,7 +25,7 @@ from ..constants import (
 from ..index.build import SaltIndex
 from ..io.fasta import read_records, trim_readno
 from ..io.sam import build_xa, emit_se, md_nm_tags_batch, sam_header
-from ..utils.metrics import progress, stage
+from ..utils.metrics import device_trace, progress, stage
 
 from ..ops.locate import Loci
 from ..ops.lv import NT2BIT_NP, lv_cigar_host
@@ -62,6 +62,12 @@ class SEOptions:
     auto_k_hits: bool = True
     cap_margin: int = 128
     verify_width: int = 64   # compact unique-candidate width (u)
+    # > 0: locate slots a read and strand in the first pass (rounded up to
+    # 64, at most full_cap()); reads whose candidate stream exceeds them
+    # are seeded and located again at full_cap().  0: one tier.  With
+    # stride-1 overlap seeding each locus appears in about 2 * l_seed seed
+    # streams, so small caps overflow on most reads.
+    fast_cap: int = 0
     pe_locate: bool = False  # alnse_locate (PE) vs alnse_locate_alt caps
     gap_k: Optional[int] = None  # gapped threshold; None -> l_seq // 10
     # -X 1: Smith-Waterman extension instead of Landau-Vishkin for reads
@@ -88,10 +94,17 @@ class SEOptions:
     device_sw: str = "auto"      # "auto" | "on" | "off"
     device_sw_min_batch: int = 32
 
-    def cap(self) -> int:
-        """Locate slots per read and strand."""
+    def full_cap(self) -> int:
+        """Locate slots per read and strand that no read overflows by the
+        per-strand push cap alone."""
         c = self.max_locate + self.cap_margin
         return ((c + 63) // 64) * 64
+
+    def cap(self) -> int:
+        """Locate slots per read and strand in the first pass."""
+        if self.fast_cap <= 0:
+            return self.full_cap()
+        return min(self.full_cap(), ((self.fast_cap + 63) // 64) * 64)
 
 
 def encode_reads(seqs: List[str]) -> np.ndarray:
@@ -204,26 +217,43 @@ def set_hits(
     return b1, xa
 
 
+def checked_options(opts: SEOptions) -> SEOptions:
+    """`opts`, or a ValueError naming the option no aligner takes."""
+    if opts.extend_algo not in ("lv", "sw"):
+        raise ValueError(f"extend_algo={opts.extend_algo!r}: "
+                         "expected 'lv' or 'sw'")
+    if opts.device_sw not in ("auto", "on", "off"):
+        raise ValueError(f"device_sw={opts.device_sw!r}: expected "
+                         "'auto', 'on' or 'off'")
+    if opts.sa_mode not in ("full", "sampled"):
+        raise ValueError(f"sa_mode={opts.sa_mode!r}: expected "
+                         "'full' or 'sampled'")
+    return opts
+
+
+def checked_device(device) -> torch.device:
+    """torch.device(device); asking for CUDA without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for but no CUDA "
+                           "device is available")
+    return dev
+
+
+def loci_rows(out, sel):
+    """Rows `sel` of both strands' located loci of an ungapped step."""
+    return (Loci(*(a[sel] for a in out.loci0)),
+            Loci(*(a[sel] for a in out.loci1)))
+
+
 class SEAligner:
     """SE aligner whose index and batches live on `device`."""
 
     def __init__(self, index: SaltIndex, opts: SEOptions = None,
                  device="cuda"):
         self.index = index
-        self.opts = opts or SEOptions()
-        if self.opts.extend_algo not in ("lv", "sw"):
-            raise ValueError(f"extend_algo={self.opts.extend_algo!r}: "
-                             "expected 'lv' or 'sw'")
-        if self.opts.device_sw not in ("auto", "on", "off"):
-            raise ValueError(f"device_sw={self.opts.device_sw!r}: expected "
-                             "'auto', 'on' or 'off'")
-        if self.opts.sa_mode not in ("full", "sampled"):
-            raise ValueError(f"sa_mode={self.opts.sa_mode!r}: expected "
-                             "'full' or 'sampled'")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' was asked for but no CUDA "
-                               "device is available")
+        self.opts = checked_options(opts or SEOptions())
+        self.device = checked_device(device)
         if self.opts.auto_k_hits and self.opts.max_hits <= 6:
             # the caller's options object may be shared: copy, not mutate
             self.opts = dataclasses.replace(
@@ -235,6 +265,55 @@ class SEAligner:
         else:
             self.dix = to_device_index(index, self.device)
 
+    # ---------------- device steps ----------------
+    # The four steps a batch is made of.  The sharded aligner
+    # (parallel/sharded_engine.py) replaces them and keeps the row
+    # bookkeeping of _complete_batch.
+
+    def _ungapped(self, fwd, rev, cap: int, u: int):
+        """Seed, locate and ungapped check of a batch at `cap` locate
+        slots and verify width `u`.  Returns (out, packed): `out` keeps
+        the located loci for the later steps, `packed` is the result with
+        the needs_gap and overflow flags."""
+        o = self.opts
+        out = se_ungapped(
+            self.dix, fwd, rev,
+            l_overlap=o.l_overlap, max_seed=o.max_seed,
+            max_locate=o.max_locate, cap=cap, u=u, k_hits=o.k_hits,
+            pe_mode=o.pe_locate, sampled=self.sampled, chunk=o.locate_chunk,
+        )
+        return out, pack_result(out.res, (out.needs_gap, out.overflow))
+
+    def _rerun_overflowed(self, fwd, rev, out, sel):
+        """Rows `sel` of a batch, whose locate or compact verify was
+        truncated, checked again in full.  Returns (packed, out_f): out_f
+        holds the rows' loci from now on, row i of it being sel[i], and is
+        None while they are still those of `out`."""
+        o = self.opts
+        if o.fast_cap > 0:
+            # the narrow first pass may have cut the candidate stream:
+            # seed and locate again at the full cap
+            out_f, packed = self._ungapped(fwd[sel], rev[sel], o.full_cap(),
+                                           o.full_cap())
+            return packed, out_f
+        # one locate tier: the located loci are complete, verify them all
+        return pack_result(se_ungapped_full(
+            self.dix, fwd[sel], rev[sel], *loci_rows(out, sel),
+            k_hits=o.k_hits)), None
+
+    def _gapped(self, fwd, rev, out, sel, k: int, u: int):
+        """Packed gapped (Landau-Vishkin) check of the reads fwd / rev
+        against rows `sel` of the loci of `out`, at verify width `u`."""
+        g = se_gapped(self.dix, fwd, rev, *loci_rows(out, sel), k=k, u=u,
+                      k_hits=self.opts.k_hits)
+        return pack_result(g.res, (g.overflow,))
+
+    def _loci_host(self, out, sel):
+        """[(pos, pushed)] as numpy arrays, one entry a strand: rows `sel`
+        of the loci of `out`, ascending by position."""
+        return [(part.pos.cpu().numpy(), part.pushed.cpu().numpy())
+                for part in loci_rows(out, sel)]
+
     # ---------------- device dispatch ----------------
 
     def _dispatch_batch(self, codes: np.ndarray):
@@ -245,14 +324,7 @@ class SEAligner:
         with stage("device.dispatch"):
             fwd = torch.from_numpy(codes).to(self.device)
             rev = torch.from_numpy(revcomp(codes)).to(self.device)
-            out = se_ungapped(
-                self.dix, fwd, rev,
-                l_overlap=o.l_overlap, max_seed=o.max_seed,
-                max_locate=o.max_locate, cap=o.cap(), u=o.verify_width,
-                k_hits=o.k_hits, pe_mode=o.pe_locate, sampled=self.sampled,
-                chunk=o.locate_chunk,
-            )
-            packed_dev = pack_result(out.res, (out.needs_gap, out.overflow))
+            out, packed_dev = self._ungapped(fwd, rev, o.cap(), o.verify_width)
         return fwd, rev, out, packed_dev
 
     def _complete_batch(self, handle):
@@ -266,66 +338,83 @@ class SEAligner:
         needs_gap = res["n_extra"][:, 0].astype(bool)
         overflow = res["n_extra"][:, 1].astype(bool)
 
-        def sub_batches(rows, size, fn):
-            """{row: unpacked result} of fn(sel) -> packed results, over
-            sub-batches of at most `size` rows."""
-            got = {}
-            for s0 in range(0, len(rows), size):
-                rr = rows[s0 : s0 + size]
-                sel = torch.as_tensor(rr, device=self.device)
-                fr = unpack_result(fn(sel).cpu().numpy(), K)
-                got.update((r, {kk: v[i] for kk, v in fr.items()})
-                           for i, r in enumerate(rr))
-            return got
+        def on_device(rows):
+            return torch.as_tensor(rows, device=self.device)
 
-        def loci_rows(sel):
-            return (Loci(*(a[sel] for a in out.loci0)),
-                    Loci(*(a[sel] for a in out.loci1)))
+        def unpack_rows(rows, packed_rows, into):
+            fr = unpack_result(packed_rows.cpu().numpy(), K)
+            into.update((r, {kk: v[i] for kk, v in fr.items()})
+                        for i, r in enumerate(rows))
 
-        # rows whose locate or compact verify was truncated: verify their
-        # located loci again at full width (rare)
+        # rows whose locate or compact verify was truncated: checked again
+        # in full (rare).  `moved` says where such a row's loci went:
+        # (ungapped output, row in it); every other row's are in `out`.
+        full_res, moved = {}, {}
         ovf_rows = np.nonzero(overflow)[0].tolist()
-        full_res = {}
         if ovf_rows:
-            def full_width(sel):
-                return pack_result(se_ungapped_full(
-                    self.dix, fwd[sel], rev[sel], *loci_rows(sel), k_hits=K))
-
             with stage("device.ungapped_full"):
-                full_res = sub_batches(ovf_rows, o.gap_batch, full_width)
-            for r, fr in full_res.items():
-                needs_gap[r] = not fr["found"]
+                for s0 in range(0, len(ovf_rows), o.gap_batch):
+                    rr = ovf_rows[s0 : s0 + o.gap_batch]
+                    packed_f, out_f = self._rerun_overflowed(
+                        fwd, rev, out, on_device(rr))
+                    unpack_rows(rr, packed_f, full_res)
+                    if out_f is not None:
+                        moved.update((r, (out_f, i))
+                                     for i, r in enumerate(rr))
+        for r, fr in full_res.items():
+            needs_gap[r] = not fr["found"]
+
+        def by_source(rows):
+            """[(ungapped output, rows whose loci it holds, their rows in
+            it)]."""
+            groups = {}
+            for r in rows:
+                src, i = moved.get(r, (out, r))
+                g = groups.setdefault(id(src), (src, [], []))
+                g[1].append(r)
+                g[2].append(i)
+            return list(groups.values())
 
         gap_rows = np.nonzero(needs_gap)[0].tolist()
         if o.extend_algo == "sw":
             sw_res = {}
             if gap_rows:
                 with stage("host.sw_extend"):
-                    self._sw_extend(gap_rows, out, int(L), fwd, rev, sw_res)
+                    strands = {}
+                    for src, rows, at in by_source(gap_rows):
+                        host = self._loci_host(src, on_device(at))
+                        strands.update(
+                            (r, [(ps[i], ks[i]) for ps, ks in host])
+                            for i, r in enumerate(rows))
+                    self._sw_extend(gap_rows, strands, int(L), fwd, rev,
+                                    sw_res)
             return res, needs_gap, sw_res, full_res
 
         gap_res = {}
         if gap_rows:
             k = o.gap_k if o.gap_k is not None else max(int(L) // 10, 0)
 
-            def gapped(u):
-                def fn(sel):
-                    g = se_gapped(self.dix, fwd[sel], rev[sel],
-                                  *loci_rows(sel), k=k, u=u, k_hits=K)
-                    return pack_result(g.res, (g.overflow,))
-                return fn
+            def gapped(src, rows, at, u, size):
+                for s0 in range(0, len(rows), size):
+                    rr = on_device(rows[s0 : s0 + size])
+                    unpack_rows(rows[s0 : s0 + size], self._gapped(
+                        fwd[rr], rev[rr], src, on_device(at[s0 : s0 + size]),
+                        k, u), gap_res)
 
-            with stage("device.gapped"):
-                gap_res = sub_batches(
-                    [r for r in gap_rows if r not in full_res], o.gap_batch,
-                    gapped(o.verify_width))
+            normal = [r for r in gap_rows if r not in full_res]
+            if normal:
+                with stage("device.gapped"):
+                    gapped(out, normal, normal, o.verify_width, o.gap_batch)
             # rows with more gapped candidates than the compact width, and
             # the overflow rows: check every candidate
             wide = [r for r in gap_rows
                     if r in full_res or gap_res[r]["n_extra"][0]]
-            with stage("device.gapped_full"):
-                gap_res.update(sub_batches(wide, FULL_WIDTH_BATCH,
-                                           gapped(o.cap())))
+            if wide:
+                with stage("device.gapped_full"):
+                    for src, rows, at in by_source(wide):
+                        gapped(src, rows, at,
+                               o.cap() if src is out else o.full_cap(),
+                               FULL_WIDTH_BATCH)
         return res, needs_gap, gap_res, full_res
 
     def _device_sw_on(self, n_items: int) -> bool:
@@ -349,17 +438,16 @@ class SEAligner:
                 torch.from_numpy(lens).to(self.device),
                 snp_mode, SW_GAP_OPEN, SW_GAP_EXTEND).cpu().numpy()
 
-    def _sw_extend(self, rows, out, L, fwd, rev, sw_res):
+    def _sw_extend(self, rows, strands, L, fwd, rev, sw_res):
         """Host SW extension over each gap-read's deduped loci
         (alnse_check_sw/sw_snp semantics; native SSW), with an optional
         batched device pre-filter: a locus whose textbook SW score is
         below the current best cannot displace it (SSW's score never
-        exceeds the textbook score, ops/sw_batch.py)."""
+        exceeds the textbook score, ops/sw_batch.py).  `strands[row]` is
+        [(pos, pushed)] of the row's loci, one entry a strand, ascending."""
         o = self.opts
         mix = self.index.mixref
         sel = torch.as_tensor(rows, device=self.device)
-        loci_h = [(part.pos[sel].cpu().numpy(), part.pushed[sel].cpu().numpy())
-                  for part in (out.loci0, out.loci1)]
         codes_f_rows = fwd[sel].cpu().numpy()
         codes_r_rows = rev[sel].cpu().numpy()
 
@@ -367,9 +455,9 @@ class SEAligner:
         per_read = []   # (ri, codes_f, codes_r, [(strand, pos), ...])
         for i, ri in enumerate(rows):
             cand = []
-            for strand, (ps, ks) in enumerate(loci_h):
+            for strand, (ps, ks) in enumerate(strands[ri]):
                 prev = None
-                for pos, pushed in zip(ps[i].tolist(), ks[i].tolist()):
+                for pos, pushed in zip(ps.tolist(), ks.tolist()):
                     if not pushed:
                         continue
                     if pos == prev or pos + L + 4 >= len(mix):
@@ -562,7 +650,8 @@ class SEAligner:
             if si + 1 < len(starts):
                 dispatch(starts[si + 1])  # device works while host finalizes
             start, nb, handle = inflight.pop(0)
-            res, needs_gap, gap_res, full_res = self._complete_batch(handle)
+            with device_trace("se_batch", self.device):
+                res, needs_gap, gap_res, full_res = self._complete_batch(handle)
             with stage("host.finalize"):
                 self._finalize_batch(
                     start, nb, names, codes, rcodes, quals, n_amb, res,

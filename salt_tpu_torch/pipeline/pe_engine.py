@@ -94,7 +94,9 @@ class PEAligner:
     """PE aligner whose index and batches live on `device`."""
 
     def __init__(self, index: SaltIndex, opts: PEOptions = None,
-                 device="cuda"):
+                 device="cuda", se_aligner=None):
+        """`se_aligner(se_opts)` builds the aligner of the per-end SE
+        stage; the default is an SEAligner of `index` on `device`."""
         self.index = index
         self.opts = opts or PEOptions()
         if self.opts.extend_algo != "lv":
@@ -108,7 +110,10 @@ class PEAligner:
         se_opts.pe_locate = True
         se_opts.gap_k = 3
         se_opts.auto_k_hits = False  # pairing2 crosses full hit lists
-        self._se = SEAligner(index, se_opts, device=device)
+        if se_aligner is None:
+            self._se = SEAligner(index, se_opts, device=device)
+        else:
+            self._se = se_aligner(se_opts)
         self.device = self._se.device
 
     # ---------------- host pairing ----------------

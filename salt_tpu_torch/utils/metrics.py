@@ -8,11 +8,14 @@ with wall-clock deltas at phase boundaries (Align_src/alnse.c:1360-1365,
   counts into a process-wide registry (``metrics_report()`` to dump).
 * ``progress(...)``   — reference-style stderr progress lines, gated by
   SALT_TPU_VERBOSE (default on, like the reference).
+* ``device_trace("label", device)`` — a torch.profiler region written as a
+  Chrome trace when SALT_TPU_TRACE=<dir> is set.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import sys
 import time
@@ -21,6 +24,7 @@ from typing import Dict, Tuple
 
 _STAGES: Dict[str, Tuple[float, int]] = defaultdict(lambda: (0.0, 0))
 _T0 = time.time()
+_TRACE_NO = itertools.count()
 
 
 def _verbose() -> bool:
@@ -74,3 +78,29 @@ def metrics_report(out=None) -> str:
     elif _verbose() and rows:
         sys.stderr.write(report + "\n")
     return report
+
+
+@contextlib.contextmanager
+def device_trace(label: str = "salt_tpu", device=None):
+    """torch.profiler region when SALT_TPU_TRACE=<dir> is set: host
+    activity always, CUDA activity when `device` is a CUDA device.  Each
+    region is exported as a Chrome trace,
+    <dir>/<label>/trace_<pid>_<n>.json.  A no-op otherwise."""
+    trace_dir = os.environ.get("SALT_TPU_TRACE")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out_dir = os.path.join(trace_dir, label)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if len(activities) > 1:
+            torch.cuda.synchronize()   # the region's kernels end inside it
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"trace_{os.getpid()}_{next(_TRACE_NO)}.json"))

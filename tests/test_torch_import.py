@@ -47,8 +47,32 @@ def test_walk_finds_the_package():
                  "salt_tpu_torch.ops.lv_cuda", "salt_tpu_torch.ops.sw_cuda",
                  "salt_tpu_torch.ops.ssw", "salt_tpu_torch.pipeline.engine",
                  "salt_tpu_torch.pipeline.pe_engine",
-                 "salt_tpu_torch.utils.native"):
+                 "salt_tpu_torch.utils.native",
+                 "salt_tpu_torch.parallel.mesh",
+                 "salt_tpu_torch.parallel.sharded",
+                 "salt_tpu_torch.parallel.sharded_engine",
+                 "salt_tpu_torch.parallel.driver",
+                 "salt_tpu_torch.sim.genome_gen", "salt_tpu_torch.sim.wgsim",
+                 "salt_tpu_torch.etl.snp_etl",
+                 "salt_tpu_torch.eval.wgsim_eval",
+                 "salt_tpu_torch.eval.readtools"):
         assert name in MODULES
+    assert len(MODULES) >= 44
+
+
+def test_no_module_sets_up_a_process_group():
+    """One process drives every device and hosts share only part files:
+    no module of the port, nor chip_smoke, imports torch.distributed."""
+    import re
+
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for top, _dirs, files in os.walk(os.path.join(ROOT, "salt_tpu_torch")):
+        paths += [os.path.join(top, f) for f in files if f.endswith(".py")]
+    assert len(paths) >= len(MODULES)
+    pattern = re.compile(r"torch\s*\.\s*distributed|from\s+torch\s+import"
+                         r"[^\n]*\bdistributed\b|init_process_group")
+    bad = [p for p in paths if pattern.search(open(p).read())]
+    assert not bad, bad
 
 
 def test_probe_refuses_a_salt_tpu_import(tmp_path):

@@ -152,11 +152,15 @@ def test_cli_aln_on_saved_index(tiny, tmp_path):
                                    ["--shards", "2"],
                                    ["--shards", "4", "--sa-mode", "sampled"]])
 def test_cli_unported_paths_exit_with_message(tmp_path, flags):
+    """No path is left unported: the options that used to exit with a
+    "not ported" message now get as far as loading the index, which is
+    not there."""
     from salt_tpu_torch import cli
 
-    rc = cli.main(["aln", "--device", "cpu"] + flags
-                  + [str(tmp_path / "idx"), str(tmp_path / "r.fq")])
-    assert rc == 2
+    with pytest.raises(FileNotFoundError, match="idx"):
+        cli.main(["aln", "--device", "cpu"] + flags
+                 + [str(tmp_path / "idx"), str(tmp_path / "r.fq")]
+                 + ([str(tmp_path / "r2.fq")] if "-p" in flags else []))
 
 
 def test_cuda_without_gpu_raises(tiny):

@@ -7,12 +7,18 @@ both salt_tpu and its port.
 import io
 
 import numpy as np
+import torch
 
 from salt_tpu.index.build import build_index_from_data
 from salt_tpu.io.fasta import SeqRecord, parse_records
 from salt_tpu.io.snp import SnpBlock
 
 BASES = "ACGT"
+
+# The tests run in several worker processes that share the cores.  With
+# one intra-op thread a worker, torch's thread pools do not spin against
+# each other and against jax's (the tensors here are small).
+torch.set_num_threads(1)
 
 
 def tiny_genome(genome_len=4096, n_snps=40, seed=5):
@@ -135,3 +141,116 @@ def repeat_fixture(tmp_dir, genome_len=50_000, n_reads=192, seed=3,
         r2.seek(0)
         return idx, list(parse_records(r1)), list(parse_records(r2))
     return idx, list(parse_records(r1))
+
+
+def contig_fixture(n_contigs=8, n_reads=160, read_len=100,
+                   repeat_at=(1000,), gapped_repeats=False):
+    """(contig_data, blocks, records) of tests/test_sharded_engine.py: 8
+    contigs, a 300 bp repeat shared by every other one (XA lists that
+    cross shards), 12 SNPs a contig; reads that are exact, carry two
+    mismatches, a 3 bp deletion (gapped path), lie inside the repeat, or
+    are random (unmapped).  More copies of the repeat a contig
+    (`repeat_at`) and repeat reads with a deletion (`gapped_repeats`)
+    make reads that overflow small locate and verify widths."""
+    rng = np.random.default_rng(21)
+    repeat = "".join(BASES[c] for c in rng.integers(0, 4, 300))
+    contig_data, blocks = [], []
+    for ci in range(n_contigs):
+        L = 4000 + 700 * (ci % 3)
+        seq = list(BASES[c] for c in rng.integers(0, 4, L))
+        if ci % 2 == 0:
+            for at in repeat_at:
+                seq[at : at + 300] = repeat
+        seq = "".join(seq)
+        contig_data.append((f"chr{ci}", "syn", seq))
+        pos = np.sort(
+            rng.choice(np.arange(50, L - 50), 12, replace=False)
+        ).astype(np.uint32)
+        stype = []
+        for p in pos:
+            ref = BASES.index(seq[p])
+            stype.append((1 << ref) | (1 << ((ref + 1) % 4)) | (ref << 4))
+        blocks.append(SnpBlock(f"chr{ci}", pos, np.array(stype, np.uint8)))
+
+    rng2 = np.random.default_rng(77)
+    reads = []
+    for i in range(n_reads):
+        seq = contig_data[int(rng2.integers(0, n_contigs))][2]
+        s = int(rng2.integers(0, len(seq) - read_len - 10))
+        r = list(seq[s : s + read_len])
+        kind = i % 5
+        if kind == 1:
+            for p in (15, 55):
+                r[p] = BASES[(BASES.index(r[p]) + 1) % 4]
+        elif kind == 2:
+            del r[40:43]
+            r += list(seq[s + read_len : s + read_len + 3])
+        elif kind == 3:
+            r = list(repeat[:read_len])
+            if gapped_repeats and i % 10 == 8:
+                r = list(repeat[:40] + repeat[43 : read_len + 3])
+        elif kind == 4 and i % 10 == 4:
+            r = [BASES[c] for c in rng2.integers(0, 4, read_len)]
+        reads.append("".join(r))
+    return contig_data, blocks, as_records(
+        (f"r{i}", s) for i, s in enumerate(reads))
+
+
+def contig_pairs(contig_data, n_pairs=48, read_len=100):
+    """(recs1, recs2): FR pairs within one contig each, inserts 300-460,
+    every fourth first end with one mismatch."""
+    rng = np.random.default_rng(5)
+    r1, r2 = [], []
+    for i in range(n_pairs):
+        seq = contig_data[int(rng.integers(0, len(contig_data)))][2]
+        tl = int(rng.integers(300, 460))
+        s = int(rng.integers(0, len(seq) - tl - 1))
+        fwd = list(seq[s : s + read_len])
+        if i % 4 == 1:
+            fwd[30] = BASES[(BASES.index(fwd[30]) + 1) % 4]
+        r1.append((f"p{i}", "".join(fwd)))
+        r2.append((f"p{i}", revcomp_str(seq[s + tl - read_len : s + tl])))
+    return as_records(r1), as_records(r2)
+
+
+def port_shards(contig_data, blocks, n_shards, l_seed=19):
+    """(shard indexes, bins): the port's sub-indexes over contiguous bins,
+    built by salt_tpu's host build and carried across."""
+    from salt_tpu_torch.parallel.sharded import partition_contigs_contiguous
+
+    bins = partition_contigs_contiguous([len(c[2]) for c in contig_data],
+                                        n_shards)
+    shards = [port_index(build_index_from_data(
+        [contig_data[i] for i in b], [blocks[i] for i in b if i < len(blocks)],
+        l_seed=l_seed)) for b in bins]
+    return shards, bins
+
+
+def bin_edge_reads(contig_data, bins, max_off=16, read_len=100):
+    """Records named `b{bin}_{head|tail}_{off}_{kind}`: reads that start
+    `off` bases (0..max_off) after a bin's first base or end `off` bases
+    before its last, exact, with two mismatches, with a 3 bp deletion or
+    with a 2 bp insertion, strands alternating."""
+    reads = []
+    for bi, b in enumerate(bins):
+        for off in range(max_off + 1):
+            for ki, kind in enumerate(("exact", "mm", "del", "ins")):
+                for side in ("head", "tail"):
+                    seq = contig_data[b[0] if side == "head" else b[-1]][2]
+                    s = off if side == "head" else len(seq) - read_len - off
+                    if kind == "del":
+                        s -= 3 * (side == "tail")
+                        r = seq[s : s + 40] + seq[s + 43 : s + read_len + 3]
+                    elif kind == "ins":
+                        s += 2 * (side == "tail")
+                        r = seq[s : s + 50] + "GT" + seq[s + 50 : s + read_len - 2]
+                    else:
+                        r = list(seq[s : s + read_len])
+                        if kind == "mm":
+                            for p in (15, 55):
+                                r[p] = BASES[(BASES.index(r[p]) + 1) % 4]
+                        r = "".join(r)
+                    if (off + ki) % 2:
+                        r = revcomp_str(r)
+                    reads.append((f"b{bi}_{side}_{off}_{kind}", r))
+    return as_records(reads)
