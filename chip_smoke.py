@@ -70,6 +70,16 @@
    1 of 2 and --merge, all the same SAM; SALT_TPU_TRACE gives a Chrome
    trace that holds CUDA kernel events.
 
+10. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
+   that code 0's exclusive count passes 2^31 (and the C-array of every
+   later code), built with ops/rank.py:build_rank_index on the host (peak
+   of its numpy arrays measured) and moved to the card; rank_excl and
+   lf_step at 2^16 ranks a symbol drawn from [2^31 - 2^20, n + 1] and at
+   2^31 - 1, 2^31, 2^31 + 1, n and n + 1, given as wrapped int32 as the
+   seed carries them, against counts made independently (count_nonzero
+   over 2^24-symbol blocks, a prefix sum over the window) mod 2^32, and
+   against the same queries on the CPU tensors.
+
 Every phase raises on failure.  The last two lines of stdout are the
 kernels' JSON record and {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, when no CUDA device is available.
@@ -86,6 +96,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import tracemalloc
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -104,7 +115,7 @@ from salt_tpu_torch.ops.lv_cuda import (
     lv_distance_bytes_cuda,
     lv_distance_cuda,
 )
-from salt_tpu_torch.ops.rank import build_rank_index
+from salt_tpu_torch.ops.rank import build_rank_index, lf_step, rank_excl
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
 from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda, sw_score_launch
 from salt_tpu_torch.parallel.mesh import make_mesh, sharded_full_step
@@ -1717,6 +1728,86 @@ def print_times(tag, t):
               f"{t['bound_ms_12ops']:.6f} ms", flush=True)
 
 
+PAST_N = 2**31 + 2**26        # symbols of the past-2^31 phase's BWT
+PAST_ZERO_SHARE = 0.985       # code 0's share: its count passes 2^31
+PAST_QUERIES = 2**16          # ranks a symbol
+PAST_BLOCK = 2**24            # symbols a block of the independent count
+
+
+def past_2g_phase(dev, n=PAST_N, pivot=2**31):
+    """rank_excl and lf_step over a rank index whose ranks and code 0's
+    exclusive counts pass `pivot` (2^31), on the card and on the CPU,
+    against counts made without the index."""
+    rng = np.random.default_rng(SEED + 31)
+    t0 = time.perf_counter()
+    syms = np.zeros(n, dtype=np.uint8)
+    k = int(n * (1 - PAST_ZERO_SHARE))
+    syms[rng.integers(0, n, k)] = rng.integers(1, 4, k).astype(np.uint8)
+    syms[int(rng.integers(0, n))] = 4                  # the in-band sentinel
+    counts = [np.count_nonzero(syms == c) for c in range(4)]
+    cfreq = np.concatenate([[0], np.cumsum(counts), [0]]).astype(np.int64)
+    t_gen = time.perf_counter() - t0
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    ri_cpu = build_rank_index(syms, cfreq)
+    t_build = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    t0 = time.perf_counter()
+    ri = ri_cpu.to(dev)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    plane_bytes = ri.bc.numel() * ri.bc.element_size()
+    print(f"[past 2^31] n = {n} symbols, code 0 count {counts[0]} (2^31 = "
+          f"{pivot}), C-array {cfreq[:5].tolist()}; made in {t_gen:.1f} s, "
+          f"build_rank_index {t_build:.1f} s at a peak of {peak} bytes of "
+          f"numpy arrays (symbols {n} bytes apart), planes {plane_bytes} "
+          f"bytes to the card in {t_copy:.1f} s", flush=True)
+    if counts[0] <= pivot:
+        raise AssertionError("code 0's count does not pass 2^31")
+
+    # independent counts: block sums up to the window, a prefix sum in it
+    lo = pivot - (n - pivot) // 64            # 2^31 - 2^20
+    edges = np.array([pivot - 1, pivot, pivot + 1, n, n + 1], np.int64)
+    t0 = time.perf_counter()
+    n_bad = n_checked = 0
+    for c in range(5):
+        base = sum(np.count_nonzero(syms[b0 : min(b0 + PAST_BLOCK, lo)] == c)
+                   for b0 in range(0, lo, PAST_BLOCK))
+        cum = np.concatenate([[0], np.cumsum(syms[lo:] == c, dtype=np.int64)])
+        cum = np.append(cum, cum[-1])          # rank n + 1 counts no more
+        kq = np.concatenate([rng.integers(lo, n + 2, PAST_QUERIES), edges])
+        lq = np.minimum(kq + rng.integers(0, 2**20, len(kq)), n)
+        want_r = base + cum[kq - lo]
+        want_k = cfreq[c] + want_r + 1
+        want_l = cfreq[c] + base + cum[lq + 1 - lo]
+        cc = np.full(len(kq), c)
+        outs = []
+        for d, r in ((dev, ri), (torch.device("cpu"), ri_cpu)):
+            # ranks as the seed carries them: uint32 read as wrapped int32
+            kt = torch.from_numpy((kq + 2**31) % 2**32 - 2**31).to(d)
+            lt = torch.from_numpy((lq + 2**31) % 2**32 - 2**31).to(d)
+            ct = torch.from_numpy(cc).to(d)
+            got = [rank_excl(r, kt, ct)] + list(lf_step(r, kt, lt, ct))
+            outs.append([g.cpu().numpy() for g in got])
+        for got in outs:
+            for g, w in zip(got, (want_r, want_k, want_l)):
+                n_bad += int(np.count_nonzero(g % 2**32 != w % 2**32))
+        n_bad += sum(int(np.count_nonzero(a != b))
+                     for a, b in zip(*outs))         # card == CPU, exactly
+        n_checked += 3 * len(kq)
+        if c == 0 and not (want_r >= pivot).any():
+            raise AssertionError("no query of code 0 counts past 2^31")
+    print(f"[past 2^31] rank_excl and lf_step at {n_checked} (rank, symbol) "
+          f"results on the card and on the CPU: {n_bad} differ from the "
+          f"independent counts mod 2^32 or from each other "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if n_bad:
+        raise AssertionError(f"past 2^31: {n_bad} rank results differ")
+    del ri, ri_cpu, syms
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1799,6 +1890,7 @@ def main() -> int:
                     batches_sent=[int(largest[3].shape[0])])
     print_times(f"lv bytes at the largest batch polish sent {lvb_sent['shape']}",
                 lvb_sent)
+    past_2g_phase(dev)
     torch.cuda.synchronize()
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -19,7 +19,9 @@ alignment, in full or sampled suffix-array mode on --device (default
 cuda; asking for cuda without a GPU is an error).  With --shards it
 aligns against the sub-indexes `idx --shards N` built, one per reference
 bin, spread over every visible CUDA device (all on the one device when
-there is one, or on the CPU with --device cpu).  With --part-dir it
+there is one, or on the CPU with --device cpu); where the prefix holds
+no monolithic bundle (tools/build_sharded.py writes none unless asked),
+SAM's host tables are the shards' laid end to end.  With --part-dir it
 writes one SAM part per batch of --shard-batch reads for the batches
 that are this process's (SALT_TPU_PROCESS_ID of SALT_TPU_NUM_PROCESSES),
 and --merge joins the parts in input order.  `polish` re-scores the
@@ -174,7 +176,13 @@ def main(argv=None):
 
     from .index.store import load_index
 
-    idx = load_index(args.index_prefix)
+    shards = None
+    if args.shards > 0:
+        from .parallel.sharded import load_sharded_index
+
+        idx, *shards = load_sharded_index(args.index_prefix)
+    else:
+        idx = load_index(args.index_prefix)
     cmd = " ".join(["salt-tpu-torch"] + argv)
     paired = bool(args.pe or args.read2)
     if args.merge:
@@ -209,7 +217,7 @@ def main(argv=None):
 
         opts = SEOptions(extend_algo="sw" if args.extend == 1 else "lv",
                          **common)
-    al = _aligner(args, idx, opts, paired)
+    al = _aligner(args, idx, opts, paired, shards)
 
     if args.part_dir:
         from .parallel.driver import align_file_sharded, maybe_init_distributed
@@ -224,10 +232,11 @@ def main(argv=None):
     return 0
 
 
-def _aligner(args, idx, opts, paired: bool):
+def _aligner(args, idx, opts, paired: bool, shards=None):
     """The SE or PE aligner of `aln`: over one index on --device, or, with
-    --shards, over the sub-indexes that `idx --shards` saved."""
-    if args.shards <= 0:
+    --shards, over the sub-indexes that `idx --shards` saved, given as
+    (shard indexes, bins)."""
+    if shards is None:
         if paired:
             from .pipeline.pe_engine import PEAligner
 
@@ -236,24 +245,17 @@ def _aligner(args, idx, opts, paired: bool):
 
         return SEAligner(idx, opts, device=args.device)
 
-    import json
-
-    from .index.store import load_index
     from .parallel.sharded_engine import ShardedPEAligner, ShardedSEAligner
 
-    with open(args.index_prefix + ".shards.json") as fh:
-        man = json.load(fh)
-    if man["n_shards"] != args.shards:
-        print(f"[aln] index was sharded {man['n_shards']}-way; "
+    shard_ixs, bins = shards
+    if len(shard_ixs) != args.shards:
+        print(f"[aln] index was sharded {len(shard_ixs)}-way; "
               f"using that (requested {args.shards})", file=sys.stderr)
-    shard_ixs = [load_index(f"{args.index_prefix}.shard{i}")
-                 for i in range(man["n_shards"])]
     cls = ShardedPEAligner if paired else ShardedSEAligner
     # "cuda" means every visible card; any other name, that one device
     return cls(idx, shard_ixs, opts,
                devices=None if args.device == "cuda" else args.device,
-               bins=man["bins"],
-               contig_lengths=[c.length for c in idx.contigs])
+               bins=bins, contig_lengths=[c.length for c in idx.contigs])
 
 
 if __name__ == "__main__":

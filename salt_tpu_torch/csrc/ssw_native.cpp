@@ -381,6 +381,13 @@ int salt_ssw_align(const int8_t* read, int readLen, const int8_t* ref,
     int bias = 0;
     for (int k = 0; k < n * n; ++k) bias = std::min(bias, int(mat[k]));
     bias = bias < 0 ? -bias : 0;
+    // a read code outside 0..n-1 (an N on the reverse strand is 3 - 4,
+    // int8 -1 or byte 255) scores as the last code, the N column, as the
+    // numpy version's index -1 does: never a read outside the matrix
+    std::vector<int8_t> codes(read, read + readLen);
+    for (auto& c : codes)
+        if (uint8_t(c) >= n) c = int8_t(n - 1);
+    read = codes.data();
 
     Best best, second;
     bool word = false;

@@ -44,6 +44,11 @@ from .suffix import bwt_from_sa, suffix_array
 
 tune_allocator()  # genome-scale numpy temporaries: see utils/alloc.py
 
+# elements (segments, for the R coordinate fill) a step of the loops that
+# would otherwise hold int64 temporaries of the whole genome or pattern
+# text at once (tens of GB at 3.1 G bases)
+CHUNK = 1 << 20
+
 
 @dataclass
 class Contig:
@@ -115,6 +120,14 @@ def index_from_arrays(src) -> SaltIndex:
             v = np.asarray(v)
         kw[f.name] = v
     return SaltIndex(**kw)
+
+
+def _counts(codes: np.ndarray, n: int) -> np.ndarray:
+    """np.bincount(codes, minlength=n)[:n], CHUNK codes at a time."""
+    out = np.zeros(n, dtype=np.int64)
+    for s0 in range(0, len(codes), CHUNK):
+        out += np.bincount(codes[s0 : s0 + CHUNK], minlength=n)[:n]
+    return out
 
 
 def encode_seq(seq: str) -> np.ndarray:
@@ -283,14 +296,17 @@ def build_r_lkt(r_codes: np.ndarray, rsa: np.ndarray, k: int = MAX_LOOKUP_LEN):
     """
     T = len(r_codes)
     ext = np.zeros(T + k, dtype=np.uint32)
-    ext[:T] = r_codes.astype(np.uint32) + 1
+    ext[:T] = r_codes
+    ext[:T] += 1
     # 6^12 < 2^32: the whole key space fits uint32.  Rolling Horner over
     # k shifted adds (a sliding_window_view matmul is ~40x slower).
     keys_by_pos = ext[: T + 1].copy()
     for j in range(1, k):
         np.multiply(keys_by_pos, 6, out=keys_by_pos)
         np.add(keys_by_pos, ext[j : j + T + 1], out=keys_by_pos)
+    del ext
     keys_rank = keys_by_pos[rsa]                        # ascending
+    del keys_by_pos
 
     # query keys for all 4^k k-mers, digitwise base-4 -> base-6(+1).
     # Built from two half-size tables with one broadcasted add: the naive
@@ -308,6 +324,7 @@ def build_r_lkt(r_codes: np.ndarray, rsa: np.ndarray, k: int = MAX_LOOKUP_LEN):
     lo = _half(kl)
     kq = (hi[:, None] + lo[None, :]).ravel()
     sp = np.searchsorted(keys_rank, kq, side="left").astype(np.uint32)
+    del keys_rank, kq
     # ep = sp + multiplicity - 1: a right-searchsorted is redundant since
     # the number of keys equal to kq(m) is the number of text positions
     # whose first k chars are exactly that ACGT k-mer
@@ -322,10 +339,14 @@ def build_r_lkt(r_codes: np.ndarray, rsa: np.ndarray, k: int = MAX_LOOKUP_LEN):
             np.add(kmers4, tmp, out=kmers4)
             np.greater_equal(r_codes[j : j + n_win], 4, out=tmp.view(bool))
             np.logical_or(npure, tmp.view(bool), out=npure)
-        kmers4 = kmers4[~npure].astype(np.int64)
+        kmers4 = kmers4[~npure]
     else:
-        kmers4 = np.zeros(0, dtype=np.int64)
-    mult = np.bincount(kmers4, minlength=4 ** k).astype(np.uint32)
+        kmers4 = np.zeros(0, dtype=np.uint32)
+    # chunked bincount, as build_lookup_table: no int64 copy of the stream
+    mult = np.zeros(4 ** k, dtype=np.uint32)
+    for s0 in range(0, len(kmers4), 1 << 26):
+        mult += np.bincount(kmers4[s0 : s0 + (1 << 26)],
+                            minlength=4 ** k).astype(np.uint32)
     ep = sp + mult - np.uint32(1)
     return sp, ep
 
@@ -433,7 +454,7 @@ def build_index_from_data(
     # --- C part BWT + full SA ---
     csa64 = suffix_array(pac)
     cbwt, c_primary = bwt_from_sa(pac, csa64, C_SENTINEL)
-    counts = np.bincount(pac, minlength=4)[:4]
+    counts = _counts(pac, 4)
     c_l2 = np.zeros(5, dtype=np.uint32)
     c_l2[1:] = np.cumsum(counts).astype(np.uint32)
     # int32 SA reinterprets as uint32 zero-copy (values are positive),
@@ -470,13 +491,14 @@ def build_index_from_data(
 
     rsa64 = suffix_array(r_codes)
     rbwt, r_primary = bwt_from_sa(r_codes, rsa64, R_SENTINEL)
-    r_counts = np.bincount(r_codes, minlength=5)[:5]
+    r_counts = _counts(r_codes, 5)
     r_cumfreq = np.zeros(6, dtype=np.uint32)
     r_cumfreq[1:] = np.cumsum(r_counts).astype(np.uint32)
 
     # per-text-position genome coordinate, then gather through the SA.
-    # Filled segment-parallel with one repeat/cumsum ramp (a per-segment
-    # python loop costs ~40s at 300k segments on chr21 scale).
+    # Filled segment-parallel with one repeat/cumsum ramp a CHUNK of
+    # segments (a per-segment python loop costs ~40s at 300k segments on
+    # chr21 scale).
     pos2coord = np.full(r_text_len + 1, UINT32_MAX, dtype=np.uint32)
     seg_start = np.array([s.text_start for s in segments], dtype=np.int64)
     seg_len = np.array([s.length for s in segments], dtype=np.int64)
@@ -499,14 +521,13 @@ def build_index_from_data(
         value = (a - seg_len - 1) & 0xFFFFFFFF
     else:
         value = np.array([s.genome_start for s in segments], dtype=np.int64)
-    if len(segments):
-        tot = int(seg_len.sum())
-        ends = np.cumsum(seg_len)
-        ramp = np.arange(tot, dtype=np.int64) - np.repeat(ends - seg_len, seg_len)
-        tpos = np.repeat(seg_start, seg_len) + ramp
-        pos2coord[tpos] = ((np.repeat(value, seg_len) + ramp) & 0xFFFFFFFF).astype(
-            np.uint32
-        )
+    for a in range(0, len(segments), CHUNK):
+        sl = seg_len[a : a + CHUNK]
+        ends = np.cumsum(sl)
+        ramp = np.arange(int(ends[-1]), dtype=np.int64) - np.repeat(ends - sl, sl)
+        tpos = np.repeat(seg_start[a : a + CHUNK], sl) + ramp
+        pos2coord[tpos] = ((np.repeat(value[a : a + CHUNK], sl) + ramp)
+                           & 0xFFFFFFFF).astype(np.uint32)
     r_coord = pos2coord[rsa64]
     r_lkt_sp, r_lkt_ep = build_r_lkt(r_codes, rsa64)
 

@@ -18,7 +18,9 @@ from .build import Contig, SaltIndex
 FORMAT_VERSION = 1
 
 
-def save_index(idx: SaltIndex, prefix: str) -> None:
+def save_index(idx: SaltIndex, prefix: str, compress: bool = None) -> None:
+    """Write the bundle.  `compress` None takes SALT_TPU_STORE_COMPRESS
+    (default on)."""
     manifest = {
         "format_version": FORMAT_VERSION,
         "l_seed": idx.l_seed,
@@ -44,9 +46,9 @@ def save_index(idx: SaltIndex, prefix: str) -> None:
     # bundle (~26GB raw) takes the better part of an hour to compress
     # and minutes to decompress.  SALT_TPU_STORE_COMPRESS=0 stores raw
     # (disk-speed save/load, ~2x the bytes).
-    writer = (np.savez_compressed
-              if os.environ.get("SALT_TPU_STORE_COMPRESS", "1") != "0"
-              else np.savez)
+    if compress is None:
+        compress = os.environ.get("SALT_TPU_STORE_COMPRESS", "1") != "0"
+    writer = np.savez_compressed if compress else np.savez
     writer(
         prefix + ".salt.npz",
         pac=idx.pac,

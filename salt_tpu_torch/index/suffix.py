@@ -20,6 +20,7 @@ import numpy as np
 
 _SAIS = None
 _SAIS_TRIED = False
+BWT_CHUNK = 1 << 26      # SA rows a step of bwt_from_sa
 
 
 def _try_load_sais():
@@ -80,15 +81,15 @@ def suffix_array(text: np.ndarray) -> np.ndarray:
         sa[0] = n
         if n > 0:
             body = np.ascontiguousarray(text, dtype=np.uint8)
-            out = np.empty(n, dtype=dt)
+            # written in place: sa[1:] is contiguous (no second SA-sized
+            # array, 12 GB at 3.1 G)
             rc = getattr(lib, fname)(
                 body.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                out.ctypes.data_as(ctypes.POINTER(cptr)),
+                sa[1:].ctypes.data_as(ctypes.POINTER(cptr)),
                 np.int64(n),
             )
             if rc != 0:
                 raise RuntimeError("salt_sais failed")
-            sa[1:] = out
         return sa
     sa = _suffix_array_doubling(text)
     return sa.astype(np.int32) if n + 1 < (1 << 31) else sa
@@ -131,10 +132,17 @@ def bwt_from_sa(text: np.ndarray, sa: np.ndarray, sentinel_code: int) -> tuple[n
     """
     if len(text) == 0:  # zero-SNP index: R text is just the sentinel
         return np.array([sentinel_code], dtype=np.uint8), 0
-    primary = int(np.nonzero(sa == 0)[0][0])
     # unsigned-safe (sa may be uint32 at whole-genome scale): clamp the
-    # primary row instead of testing prev < 0
-    prev_clip = np.where(sa == 0, 0, sa - 1)
-    bwt = text[prev_clip].astype(np.uint8)
+    # primary row instead of testing prev < 0; BWT_CHUNK rows at a time,
+    # so the temporaries stay small next to the SA
+    bwt = np.empty(len(sa), dtype=np.uint8)
+    primary = -1
+    chunk = BWT_CHUNK
+    for r0 in range(0, len(sa), chunk):
+        part = sa[r0 : r0 + chunk]
+        at0 = part == 0
+        if primary < 0 and at0.any():
+            primary = r0 + int(np.argmax(at0))
+        bwt[r0 : r0 + chunk] = text[np.where(at0, 0, part - 1)]
     bwt[primary] = sentinel_code
     return bwt, primary

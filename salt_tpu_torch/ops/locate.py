@@ -140,6 +140,18 @@ def resolve_sampled(sampled, ri_c, ri_r, rank: torch.Tensor,
                        (val + steps) & U32)
 
 
+def sa_gather_index(rank: torch.Tensor, is_r: torch.Tensor, c_sa_len: int,
+                    n_cat: int) -> torch.Tensor:
+    """Row of sa_cat (csa ++ r_coord) holding a rank's value.  The rank is
+    uint32, carried as a wrapped int32: a C rank of a text of 2^31
+    symbols or more reads as negative and is taken back through `& U32`
+    (salt_tpu clips the int32, which sends it to row 0).  Each family is
+    clamped into its own part."""
+    ru = rank & U32
+    return torch.where(is_r, ru.clamp(max=n_cat - c_sa_len - 1) + c_sa_len,
+                       ru.clamp(max=c_sa_len - 1))
+
+
 def locate(
     c_seeds: Seeds,
     r_seeds: Seeds,
@@ -212,9 +224,8 @@ def locate(
             sa_val = resolve_sampled(sampled, ri_c, ri_r, rank, slot_is_r,
                                      in_range)
         else:
-            rank_c = rank.clamp(0, c_sa_len - 1)
-            rank_r = rank.clamp(0, sa_cat.shape[0] - c_sa_len - 1) + c_sa_len
-            sa_val = take_u32(sa_cat, torch.where(slot_is_r, rank_r, rank_c))
+            sa_val = take_u32(sa_cat, sa_gather_index(
+                rank, slot_is_r, c_sa_len, sa_cat.shape[0]))
         pos = (sa_val - at(off)) & U32
         ok_c = ((pos + l_seq) & U32) <= l_mref  # uint32 wraparound, as in C
         ok_r = (pos <= l_mref) & ok_c

@@ -395,6 +395,15 @@ _NATIVE = None
 _NATIVE_TRIED = False
 
 
+def read_codes(read: np.ndarray, n: int) -> np.ndarray:
+    """int8 read codes with every code outside 0..n-1 as n - 1, the N
+    column.  An N on the reverse strand arrives as 3 - 4 (int8 -1, byte
+    255); numpy's index -1 reads that column, and csrc/ssw_native.cpp
+    maps such codes the same way."""
+    codes = np.asarray(read).astype(np.uint8)
+    return np.where(codes < n, codes, n - 1).astype(np.int8)
+
+
 def _try_load_native():
     """salt_ssw_align of the port's host library (csrc/ssw_native.cpp):
     exact same semantics, ~10^3 faster than the lane emulation below.
@@ -491,6 +500,7 @@ def ssw_align_py(
 ) -> SWResult:
     """Pure-numpy reference implementation (lane-exact SSE emulation)."""
     n = mat.shape[0]
+    read = read_codes(read, n)
     bias = int(abs(min(0, mat.min())))
     readLen = len(read)
     refLen = len(ref)

@@ -43,7 +43,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..index.build import SaltIndex, build_index_from_data
+from ..index.build import Contig, SaltIndex, build_index_from_data
 from ..ops.uint import U32
 from ..pipeline.device_index import DeviceIndex, to_device_index
 from ..pipeline.engine import checked_device
@@ -128,6 +128,47 @@ def shard_devices(n_shards: int, devices=None) -> List[torch.device]:
         raise ValueError(f"mesh has {len(devices)} devices for "
                          f"{n_shards} shards")
     return [devices[s % len(devices)] for s in range(n_shards)]
+
+
+def host_index(shard_indexes: List[SaltIndex]) -> SaltIndex:
+    """The host half of the monolithic index over the shards' bins laid
+    end to end in shard order: the contig table at global offsets, pac and
+    mixref, which is all that the aligners' host finalize and SAM read.
+    It holds no BWT, suffix array or lookup table (those fields are
+    empty) and never goes to a device.  An N base of pac is drawn per
+    shard, where a monolithic build draws them over the whole genome."""
+    contigs, off = [], 0
+    for ix in shard_indexes:
+        contigs += [Contig(c.name, c.anno, off + c.offset, c.length, c.n_ambs)
+                    for c in ix.contigs]
+        off += ix.l_pac
+    u32, u8 = np.zeros(0, np.uint32), np.zeros(0, np.uint8)
+    return SaltIndex(
+        l_seed=shard_indexes[0].l_seed, contigs=contigs, l_pac=off,
+        pac=np.concatenate([ix.pac for ix in shard_indexes]),
+        mixref=np.concatenate([ix.mixref for ix in shard_indexes]),
+        lkt=u32, cbwt=u8, c_l2=np.zeros(5, np.uint32), c_primary=0, csa=u32,
+        r_text_len=0, rbwt=u8, r_cumfreq=np.zeros(6, np.uint32), r_primary=0,
+        r_coord=u32)
+
+
+def load_sharded_index(prefix: str):
+    """(host index, shard indexes, bins) of what `cli idx --shards N`
+    writes: prefix.shards.json and prefix.shard{i}.  The host index is the
+    monolithic bundle at `prefix` where there is one, else host_index of
+    the shards."""
+    import json
+    import os
+
+    from ..index.store import load_index
+
+    with open(prefix + ".shards.json") as fh:
+        man = json.load(fh)
+    shard_ixs = [load_index(f"{prefix}.shard{i}")
+                 for i in range(man["n_shards"])]
+    host = (load_index(prefix) if os.path.exists(prefix + ".salt.json")
+            else host_index(shard_ixs))
+    return host, shard_ixs, man["bins"]
 
 
 @dataclass

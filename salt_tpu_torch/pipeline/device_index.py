@@ -65,17 +65,29 @@ class DeviceIndex:
         return sum(seen.values())
 
 
+def _pack_words(vals: np.ndarray, W: int) -> np.ndarray:
+    """uint8 symbols (< 16) -> W uint32 words, 8 per word, little-endian
+    within the word, zero past the end.  Built 2^24 words at a time: a
+    whole genome's symbols at once would take a uint32 temporary of 4
+    bytes a symbol (12 GB at 3.1 G)."""
+    words = np.zeros(W, dtype=np.uint32)
+    chunk = 1 << 24
+    for w0 in range(0, (len(vals) + 7) // 8, chunk):
+        seg = vals[w0 * 8 : (w0 + chunk) * 8]
+        nw = (len(seg) + 7) // 8
+        padded = np.zeros(nw * 8, dtype=np.uint32)
+        padded[: len(seg)] = seg
+        acc = words[w0 : w0 + nw]
+        for j in range(8):
+            acc |= padded[j::8] << np.uint32(4 * j)
+    return words
+
+
 def pack_nibbles(mixref: np.ndarray) -> np.ndarray:
     """uint8 nibbles -> uint32 words, little-endian within the word
-    (the mixRef pac layout, metaref.c:54-56)."""
-    n = len(mixref)
-    W = (n + 7) // 8 + 2
-    padded = np.zeros(W * 8, dtype=np.uint32)
-    padded[:n] = mixref
-    words = np.zeros(W, dtype=np.uint32)
-    for j in range(8):
-        words |= padded[j::8] << np.uint32(4 * j)
-    return words
+    (the mixRef pac layout, metaref.c:54-56), two zero words past the
+    end."""
+    return _pack_words(mixref, (len(mixref) + 7) // 8 + 2)
 
 
 def canonical_r_lkt(sp: np.ndarray, ep: np.ndarray):
@@ -147,15 +159,9 @@ def sampled_from_arrays(sel_cat, samples_cat, syms_cat, **fields) -> SampledSA:
 
 
 def _pack4(vals: np.ndarray) -> np.ndarray:
-    """uint8 symbols (< 16) -> uint32 words, 8 per word, little-endian."""
-    n = len(vals)
-    W = (n + 7) // 8 + 1
-    padded = np.zeros(W * 8, dtype=np.uint32)
-    padded[:n] = vals
-    words = np.zeros(W, dtype=np.uint32)
-    for j in range(8):
-        words |= padded[j::8] << np.uint32(4 * j)
-    return words
+    """uint8 symbols (< 16) -> uint32 words, 8 per word, little-endian,
+    one zero word past the end."""
+    return _pack_words(vals, (len(vals) + 7) // 8 + 1)
 
 
 def _select_rows(mask: np.ndarray) -> np.ndarray:
@@ -174,9 +180,9 @@ def _select_rows(mask: np.ndarray) -> np.ndarray:
 def build_sampled_sa(idx: SaltIndex, intv: int = 8) -> SampledSA:
     """The sampled locate tables of a host index, as host tensors."""
     n1 = len(idx.csa)            # n + 1 ranks
-    csa_true = idx.csa.astype(np.int64)
-    csa_true[0] = n1 - 1         # undo the sa[0] = 0xFFFFFFFF quirk
-    mask = (csa_true % intv) == 0
+    mask = (idx.csa % np.uint32(intv)) == 0
+    # rank 0 holds the sa[0] = 0xFFFFFFFF quirk; its position is n
+    mask[0] = (n1 - 1) % intv == 0
     # the stored value keeps the rank-0 quirk byte for byte
     c_samples = idx.csa[mask]
 
@@ -243,8 +249,13 @@ def to_device_index(idx: SaltIndex, device, sa_mode: str = "full",
         sa_cat = np.zeros(2, np.uint32)   # placeholder, never read
         c_sa_len = 1
     else:
-        sa_cat = np.concatenate([idx.csa, idx.r_coord])
         c_sa_len = len(idx.csa)
+        # the two parts copied into place: no host copy of csa ++ r_coord
+        # (18 GB at 3.1 G bases)
+        sa_cat = torch.empty(c_sa_len + len(idx.r_coord), dtype=torch.int32,
+                             device=dev)
+        sa_cat[:c_sa_len].copy_(u32_table(idx.csa))
+        sa_cat[c_sa_len:].copy_(u32_table(idx.r_coord))
     ri_c, ri_r = rank_indexes_to(dev, ri_c, ri_r)
     dix = DeviceIndex(
         ri_c=ri_c,
@@ -252,7 +263,7 @@ def to_device_index(idx: SaltIndex, device, sa_mode: str = "full",
         lkt=u32_table(idx.lkt).to(dev),
         r_lkt_sp=u32_table(r_lkt_sp).to(dev),
         r_lkt_ep=u32_table(r_lkt_ep).to(dev),
-        sa_cat=u32_table(sa_cat).to(dev),
+        sa_cat=u32_table(sa_cat).to(dev) if sa_mode == "sampled" else sa_cat,
         mixref_words=u32_table(pack_nibbles(idx.mixref)).to(dev),
         l_pac=idx.l_pac,
         l_seed=idx.l_seed,

@@ -5,9 +5,10 @@ polish calls (a byte reference, precoded patterns, k = 13, windows of
 exactly the read length) against salt_tpu's and against the host LV.
 The SAM is the port's own output on the repeat-genome fixture, with XA
 multi-hits, plus hand-made records: a hit whose window the reference end
-cuts, reads at distance 13 and 14, an N on the reverse strand (in the
-Landau-Vishkin runs only: SSW indexes its score matrix with that byte,
-255, and reads outside it, in both packages alike).  Tolerance: exact."""
+cuts, reads at distance 13 and 14, an N on the reverse strand (code
+3 - 4: salt_tpu's native SSW reads outside its score matrix there, so
+for reads with such a code the reference is salt_tpu's numpy SSW, whose
+index -1 is the N column).  Tolerance: exact."""
 
 import io
 from contextlib import redirect_stdout
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from salt_tpu.ops import ssw as jssw
 from salt_tpu.ops.lv import lv_distance_batch as jax_lv
 from salt_tpu.polish import polish as jpolish
 from salt_tpu_torch import cli
@@ -50,10 +52,10 @@ def _sam_line(name, flag, chrom, pos, seq, xa=""):
             f"{'I' * len(seq)}{tail}")
 
 
-def _hand_made(idx, rng, with_n):
+def _hand_made(idx, rng):
     """Four pairs of records that the aligner would not give: a hit whose
     window is cut by the reference end (host path), reads at distance 13
-    (cigar '*') and 14 (unmapped), with `with_n` an N read from the
+    (cigar '*') and 14 (unmapped), an N read from the
     reverse strand, with an XA list on both strands, an unmapped record,
     another length."""
     chrom = idx.contigs[0].name
@@ -65,7 +67,7 @@ def _hand_made(idx, rng, with_n):
         _sam_line("cut/1", 0, chrom, n - 50 + 1, w(n - 50, 50) + w(0, 50),
                   xa=f"{chrom},+{n - 99},100M,0;{chrom},+301,100M,3;"),
         _sam_line("cut/2", 16, chrom, 701,
-                  rc[:40] + ("N" if with_n else rc[40]) + rc[41:],
+                  rc[:40] + "N" + rc[41:],
                   xa=f"{chrom},-705,100M,1;{chrom},+701,100M,9;"),
         _sam_line("d13/1", 0, chrom, 1201, _subst(w(1200), 13, rng)),
         _sam_line("d13/2", 0, chrom, 1601, _subst(w(1600), 14, rng),
@@ -92,7 +94,7 @@ def sams(tmp_path_factory):
     paths = {}
     for paired, body in ((False, se), (True, pe)):
         for use_sw in (False, True):
-            extra = _hand_made(idx, np.random.default_rng(21), not use_sw)
+            extra = _hand_made(idx, np.random.default_rng(21))
             path = d / f"{'pe' if paired else 'se'}{'_sw' if use_sw else ''}.sam"
             path.write_text("@HD\tVN:1.0\n" + "".join(l + "\n" for l in body)
                             + "".join(extra))
@@ -106,12 +108,31 @@ def _polished(fn, idx, path, paired, use_sw, **kw):
     return out.getvalue()
 
 
+def _reference(idx, path, paired, use_sw):
+    """salt_tpu's polish of the same SAM.  For a read with a code outside
+    the score matrix (an N on the reverse strand) its SSW is the numpy
+    version: the native one reads out of bounds there."""
+    n_numpy = []
+
+    def ssw(read, ref, mat, *args, **kw):
+        if (np.asarray(read).astype(np.uint8) >= mat.shape[0]).any():
+            n_numpy.append(1)
+            return jssw.ssw_align_py(read, ref, mat, *args, **kw)
+        return jssw.ssw_align(read, ref, mat, *args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpolish, "ssw_align", ssw)
+        out = _polished(jpolish.polish_main, idx, path, paired, use_sw)
+    assert bool(n_numpy) == use_sw      # the N record reached the SSW
+    return out
+
+
 @pytest.mark.parametrize("use_sw", [False, True], ids=["lv", "ssw"])
 @pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
 def test_polish_main_matches(sams, paired, use_sw):
     idx, pidx, paths = sams
     path = paths[paired, use_sw]
-    want = _polished(jpolish.polish_main, idx, path, paired, use_sw)
+    want = _reference(idx, path, paired, use_sw)
     metrics_reset()
     got = _polished(polish.polish_main, pidx, path, paired, use_sw,
                     device="cpu")
@@ -184,8 +205,8 @@ def test_cli_polish(sams, tmp_path, flags):
         rc = cli.main(["polish", "--device", "cpu"] + flags
                       + [str(tmp_path / "idx"), path])
     assert rc == 0
-    assert out.getvalue() == _polished(jpolish.polish_main, idx, path,
-                                       "-p" in flags, "-s" in flags)
+    assert out.getvalue() == _reference(idx, path, "-p" in flags,
+                                        "-s" in flags)
 
 
 @pytest.mark.parametrize("extra", [[], ["-X", "1"], ["-p"]],
