@@ -35,7 +35,12 @@
    kernel in turns old, new, new, old; times the one-thread kernel at
    L = 2,047.  After the slice phases, the same turns at the batch sizes
    the paths really sent.
-4. Slice phases on one chr21-scale SNP-aware index (45M bases in 8
+4. Device build: the index of the next phases and a 4,600,000-base index
+   with no SNP, each in full and in sampled mode, loaded by
+   to_device_index (planes, packed words and sampled tables built on the
+   card) and by host_route_index (numpy on the host, then copied): every
+   tensor bit-equal, both routes' seconds and peak device memory.
+5. Slice phases on one chr21-scale SNP-aware index (45M bases in 8
    contigs, 1 SNP per 300 bp) built in process, the 4 sub-indexes of the
    sharded aligner beside it: SE with Landau-Vishkin extension, SE with
    Smith-Waterman extension (-X 1), and paired-end with mate rescue.  Each
@@ -43,17 +48,17 @@
    just before, checks that its kernels ran, the mapped and correct
    shares, and that a prefix of the reads gives byte-identical SAM on the
    CPU (and, for the SW paths, on the card with the pre-filter off).
-5. Sampled suffix-array mode on the same index (sa_intv = 8): the LF-walk
+6. Sampled suffix-array mode on the same index (sa_intv = 8): the LF-walk
    resolver on 2 x 65,536 random ranks against the host tables, with the
    fused and with standalone rank planes; SE with Landau-Vishkin extension
    on the same reads, SAM byte-identical to full mode; one paired-end
    chunk likewise; the device bytes of the locate tables in both modes.
-6. Polish on the card over the SE and the PE SAM of phase 4 (Landau-Vishkin
+7. Polish on the card over the SE and the PE SAM of phase 5 (Landau-Vishkin
    scoring through K1's byte form), byte-identical to the same call on the
    CPU; SSW scoring (-s) on 512 records; then K1's byte form timed at the
    largest batch that path sent.
 
-7. The index sharded by reference bin (4 shards, all resident on the one
+8. The index sharded by reference bin (4 shards, all resident on the one
    card): SE with Landau-Vishkin extension on the SE phase's reads (SAM
    byte-identical to the monolithic aligner's, K1 launched in every timed
    batch, the two aligners' rates in turns, device bytes of the four
@@ -62,18 +67,19 @@
    shape K1 and K2 were sent is held against the plain version; the
    ungapped sharded step (sharded_se_step) on its default devices, equal
    to the monolithic ungapped step.
-8. fast_cap=64 on one batch (SAM equal to one locate tier, the rows
+9. fast_cap=64 on one batch (SAM equal to one locate tier, the rows
    located again, both times in turns); the data-parallel step over
    make_mesh() and over the card named twice, equal to the unsplit step.
-9. The command line on a 3,000,000-base genome in a temporary directory:
+10. The command line on a 3,000,000-base genome in a temporary directory:
    idx --shards 4, aln, aln --shards 4, aln --part-dir as processes 0 and
    1 of 2 and --merge, all the same SAM; SALT_TPU_TRACE gives a Chrome
    trace that holds CUDA kernel events.
 
-10. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
+11. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
    that code 0's exclusive count passes 2^31 (and the C-array of every
-   later code), built with ops/rank.py:build_rank_index on the host (peak
-   of its numpy arrays measured) and moved to the card; rank_excl and
+   later code), its planes built on the card by ops/rank.py:rank_index_on
+   and on the host by build_rank_index (peak of its numpy arrays
+   measured), bit-equal, both timed; rank_excl and
    lf_step at 2^16 ranks a symbol drawn from [2^31 - 2^20, n + 1] and at
    2^31 - 1, 2^31, 2^31 + 1, n and n + 1, given as wrapped int32 as the
    seed carries them, against counts made independently (count_nonzero
@@ -115,7 +121,12 @@ from salt_tpu_torch.ops.lv_cuda import (
     lv_distance_bytes_cuda,
     lv_distance_cuda,
 )
-from salt_tpu_torch.ops.rank import build_rank_index, lf_step, rank_excl
+from salt_tpu_torch.ops.rank import (
+    build_rank_index,
+    lf_step,
+    rank_excl,
+    rank_index_on,
+)
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
 from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda, sw_score_launch
 from salt_tpu_torch.parallel.mesh import make_mesh, sharded_full_step
@@ -130,7 +141,11 @@ from salt_tpu_torch.parallel.sharded_engine import (
     ShardedSEAligner,
 )
 from salt_tpu_torch.pipeline import se as se_mod
-from salt_tpu_torch.pipeline.device_index import pack_nibbles, to_device_index
+from salt_tpu_torch.pipeline.device_index import (
+    host_route_index,
+    pack_nibbles,
+    to_device_index,
+)
 from salt_tpu_torch.pipeline.engine import (
     SEAligner,
     SEOptions,
@@ -1113,8 +1128,8 @@ def resolver_check(idx, al, dev):
     rank = torch.from_numpy(np.concatenate([rc, rr])).to(dev)
     is_r = torch.arange(2 * N_RESOLVE, device=dev) >= N_RESOLVE
     active = torch.ones(2 * N_RESOLVE, dtype=torch.bool, device=dev)
-    solo = (build_rank_index(idx.cbwt, np.append(idx.c_l2, 0)).to(dev),
-            build_rank_index(idx.rbwt, np.append(idx.r_cumfreq, 0)).to(dev))
+    solo = (rank_index_on(dev, idx.cbwt, np.append(idx.c_l2, 0)),
+            rank_index_on(dev, idx.rbwt, np.append(idx.r_cumfreq, 0)))
     for name, (ri_c, ri_r) in (("fused", (al.dix.ri_c, al.dix.ri_r)),
                                ("standalone", solo)):
         torch.cuda.synchronize()
@@ -1728,6 +1743,76 @@ def print_times(tag, t):
               f"{t['bound_ms_12ops']:.6f} ms", flush=True)
 
 
+# ---------------------------------------------------------------- device build
+
+ZERO_SNP_LEN = 4_600_000     # config 2's plain genome (tools/bench_configs.py)
+
+
+def differing(got, want, path="index"):
+    """Paths at which two indexes differ: a tensor's dtype, shape or any
+    bit, or another field's value."""
+    if isinstance(want, torch.Tensor):
+        if (got.dtype, got.shape) != (want.dtype, want.shape):
+            return [f"{path} ({got.dtype} {tuple(got.shape)} against "
+                    f"{want.dtype} {tuple(want.shape)})"]
+        return [] if torch.equal(got, want) else [path]
+    if isinstance(want, tuple):
+        return [p for i, (g, w) in enumerate(zip(got, want))
+                for p in differing(g, w, f"{path}[{i}]")]
+    if dataclasses.is_dataclass(want):
+        return [p for f in dataclasses.fields(want)
+                for p in differing(getattr(got, f.name), getattr(want, f.name),
+                                   f"{path}.{f.name}")]
+    return [] if got == want else [f"{path} ({got} against {want})"]
+
+
+def timed_build(build):
+    """(result, seconds, peak device bytes above what was resident) of
+    one index build ending in a synchronize."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def device_build_phase(idx, dev):
+    """to_device_index on the card against host_route_index (the numpy
+    builders on the host, then copies), full and sampled mode, on the
+    chr21 index and on a zero-SNP index: every tensor bit-equal."""
+    rng = np.random.default_rng(SEED + 7)
+    codes = rng.integers(0, 4, ZERO_SNP_LEN, dtype=np.int64).astype(np.uint8)
+    plain = build_index_from_data(
+        [("chr1", "synt", np.frombuffer(b"ACGT", dtype=np.uint8)[codes])], [],
+        l_seed=19)
+    for name, ix in (("chr21", idx), ("zero-SNP", plain)):
+        for mode in ("full", "sampled"):
+            got, t_dev, peak_dev = timed_build(
+                lambda: to_device_index(ix, dev, mode))
+            want, t_host, peak_host = timed_build(
+                lambda: host_route_index(ix, dev, mode))
+            bad = differing(got, want)
+            dix = got[0] if mode == "sampled" else got
+            n_bytes = dix.table_bytes() + (got[1].table_bytes()
+                                           if mode == "sampled" else 0)
+            print(f"[device build] {name} ({ix.l_pac} bases, T = "
+                  f"{ix.r_text_len}), {mode}: {n_bytes} bytes on the card; "
+                  f"built on the card {t_dev:.3f} s, peak {peak_dev} bytes; "
+                  f"host route {t_host:.3f} s, peak {peak_host} bytes; "
+                  f"{len(bad)} fields differ", flush=True)
+            if bad:
+                raise AssertionError(f"device build, {name} {mode}: {bad[:5]}")
+            if name == "zero-SNP" and mode == "sampled" and (
+                    got[1].samples_cat.shape[0] != got[1].c_n_samples + 1):
+                raise AssertionError("zero-SNP sampled tables lack the dummy")
+            del got, want, dix
+    torch.cuda.empty_cache()
+
+
 PAST_N = 2**31 + 2**26        # symbols of the past-2^31 phase's BWT
 PAST_ZERO_SHARE = 0.985       # code 0's share: its count passes 2^31
 PAST_QUERIES = 2**16          # ranks a symbol
@@ -1753,18 +1838,23 @@ def past_2g_phase(dev, n=PAST_N, pivot=2**31):
     t_build = time.perf_counter() - t0
     peak = tracemalloc.get_traced_memory()[1]
     tracemalloc.stop()
-    t0 = time.perf_counter()
-    ri = ri_cpu.to(dev)
-    torch.cuda.synchronize()
-    t_copy = time.perf_counter() - t0
+    ri, t_dev, peak_dev = timed_build(lambda: rank_index_on(dev, syms, cfreq))
+    same = torch.equal(ri.bc, ri_cpu.bc.to(dev))
+    # code 0's exclusive count at its plane's last word, read as uint32
+    top = int(ri.bc[ri.n_words - 1, 0]) & 0xFFFFFFFF
     plane_bytes = ri.bc.numel() * ri.bc.element_size()
     print(f"[past 2^31] n = {n} symbols, code 0 count {counts[0]} (2^31 = "
           f"{pivot}), C-array {cfreq[:5].tolist()}; made in {t_gen:.1f} s, "
           f"build_rank_index {t_build:.1f} s at a peak of {peak} bytes of "
-          f"numpy arrays (symbols {n} bytes apart), planes {plane_bytes} "
-          f"bytes to the card in {t_copy:.1f} s", flush=True)
-    if counts[0] <= pivot:
+          f"numpy arrays (symbols {n} bytes apart); rank_index_on on the card "
+          f"{t_dev:.2f} s at a peak of {peak_dev} device bytes (planes "
+          f"{plane_bytes}); planes bit-equal: {same}; code 0's exclusive "
+          f"count at its last word {top}", flush=True)
+    if counts[0] <= pivot or top <= pivot:
         raise AssertionError("code 0's count does not pass 2^31")
+    if not same:
+        raise AssertionError("planes built on the card differ from "
+                             "build_rank_index's")
 
     # independent counts: block sums up to the window, a prefix sum in it
     lo = pivot - (n - pivot) // 64            # 2^31 - 2^20
@@ -1838,6 +1928,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     idx, shards, bins, bounds, hap = make_index(GENOME_LEN, SNP_EVERY, rng)
+    device_build_phase(idx, dev)
     recs, truth = simulate_reads(hap, bounds, BATCH * (1 + N_TIMED), READ_LEN,
                                  rng)
 

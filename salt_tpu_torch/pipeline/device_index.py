@@ -2,12 +2,23 @@
 and in sampled suffix-array mode.  Port of
 salt_tpu/pipeline/device_index.py.
 
-Every table is built on the host and copied to the device once.  uint32
-tables are stored as int32 tensors holding the same bits (ops/uint.py).
-salt_tpu's functions that make the same tables on the device (planes from
-packed symbols, the 12-mer tables, sa_cat derived by sampled walks)
-exist to send fewer bytes to a remote device and are not carried over;
-what they produce is what matches.
+uint32 tables are stored as int32 tensors holding the same bits
+(ops/uint.py).  to_device_index builds on the device it is given (the
+card, or the CPU when the caller asks) what is a pass over the genome:
+the rank planes (ops/rank.py, from the uint8 BWTs sent a chunk at a
+time), the packed mixRef words, and in sampled mode every sampled locate
+table (the select rows and samples from csa and r_coord streamed a chunk
+at a time, never resident; the packed BWT symbols).  In full mode csa and
+r_coord are copied into the one sa_cat tensor.  The 12-mer tables are
+copied from the bundle, which holds them (building the R table is twelve
+LF steps over all 4^12 k-mers, which every CPU test that builds an index
+would run).  salt_tpu's sa_cat derived by sampled walks is not built
+either: it needs the sampled tables first and differs from the bundle's
+only at unreachable ranks.
+
+host_route_index is the same index made the way it was before the device
+builders, in numpy on the host: the reference they are held against, not
+a path of any aligner.
 """
 
 from __future__ import annotations
@@ -23,8 +34,14 @@ from ..index.build import SaltIndex
 from ..ops.rank import (
     RankIndex,
     build_rank_index,
+    chunk_words,
+    flag_words,
     fuse_rank_index_pair,
+    host_chunk,
+    rank_index_on,
+    rank_index_pair_on,
     rank_indexes_to,
+    write_rows,
 )
 from ..ops.uint import u32_table
 
@@ -88,6 +105,27 @@ def pack_nibbles(mixref: np.ndarray) -> np.ndarray:
     (the mixRef pac layout, metaref.c:54-56), two zero words past the
     end."""
     return _pack_words(mixref, (len(mixref) + 7) // 8 + 2)
+
+
+def pack_words_into(vals: np.ndarray, words: torch.Tensor,
+                    chunk: int = 0) -> torch.Tensor:
+    """_pack_words on words' device, into `words` (int32 holding the uint32
+    bits) and returned: 8 symbols (< 16) a word, little-endian, zero past
+    the end.  The symbols go to the device a chunk at a time; three folds
+    of their int64 view (eight symbols, one a byte) gather each eight into
+    the low 32 bits."""
+    dev = words.device
+    step = 4 * (chunk or chunk_words(dev))      # words a chunk
+    n_full = (len(vals) + 7) // 8
+    for w0 in range(0, n_full, step):
+        w1 = min(w0 + step, n_full)
+        x = host_chunk(vals, 8 * w0, 8 * w1, 0, dev).view(torch.int64)
+        x = (x | (x >> 4)) & 0x00FF00FF00FF00FF
+        x = (x | (x >> 8)) & 0x0000FFFF0000FFFF
+        x = (x | (x >> 16)) & 0xFFFFFFFF
+        words[w0:w1] = x - ((x & 0x80000000) << 1)     # the int32 of its bits
+    words[n_full:] = 0
+    return words
 
 
 def canonical_r_lkt(sp: np.ndarray, ep: np.ndarray):
@@ -177,17 +215,11 @@ def _select_rows(mask: np.ndarray) -> np.ndarray:
     return sel
 
 
-def build_sampled_sa(idx: SaltIndex, intv: int = 8) -> SampledSA:
-    """The sampled locate tables of a host index, as host tensors."""
-    n1 = len(idx.csa)            # n + 1 ranks
-    mask = (idx.csa % np.uint32(intv)) == 0
-    # rank 0 holds the sa[0] = 0xFFFFFFFF quirk; its position is n
-    mask[0] = (n1 - 1) % intv == 0
-    # the stored value keeps the rank-0 quirk byte for byte
-    c_samples = idx.csa[mask]
-
-    # R: '#' ranks are [cumfreq[4]+1, cumfreq[5]+1) in in-band-sentinel
-    # rank coordinates (the sentinel suffix is rank 0)
+def sharp_range(idx: SaltIndex):
+    """(sharp_lo, sharp_hi), the '#' ranks of the R BWT, checked against
+    the index's sharp_bases."""
+    # '#' ranks are [cumfreq[4]+1, cumfreq[5]+1) in in-band-sentinel rank
+    # coordinates (the sentinel suffix is rank 0)
     sharp_lo = int(idx.r_cumfreq[4]) + 1
     sharp_hi = int(idx.r_cumfreq[5]) + 1
     if (idx.sharp_bases is not None
@@ -201,6 +233,19 @@ def build_sampled_sa(idx: SaltIndex, intv: int = 8) -> SampledSA:
     if idx.sharp_bases is None:
         raise ValueError("index missing sharp_bases; rebuild with current "
                          "version for sa_mode='sampled'")
+    return sharp_lo, sharp_hi
+
+
+def build_sampled_sa(idx: SaltIndex, intv: int = 8) -> SampledSA:
+    """The sampled locate tables of a host index, as host tensors."""
+    sharp_lo, sharp_hi = sharp_range(idx)
+    n1 = len(idx.csa)            # n + 1 ranks
+    mask = (idx.csa % np.uint32(intv)) == 0
+    # rank 0 holds the sa[0] = 0xFFFFFFFF quirk; its position is n
+    mask[0] = (n1 - 1) % intv == 0
+    # the stored value keeps the rank-0 quirk byte for byte
+    c_samples = idx.csa[mask]
+
     # an R walk stops at a '#' rank (value = sharp_base: coord(p) = base +
     # steps, rbwt.c:316-333) or at a rank whose coordinate is a multiple
     # of intv (coordinates are affine in text position within a segment,
@@ -227,18 +272,152 @@ def build_sampled_sa(idx: SaltIndex, intv: int = 8) -> SampledSA:
         intv=intv, max_r_walk=intv)
 
 
+def sampled_sa_on(idx: SaltIndex, device, intv: int = 8,
+                  chunk: int = 0) -> SampledSA:
+    """build_sampled_sa's tables built on `device`, bit-identical: csa and
+    r_coord go there a chunk at a time for the stop masks, the select rows
+    and the compaction of the samples, and are not kept."""
+    sharp_lo, sharp_hi = sharp_range(idx)
+    dev = torch.device(device)
+    chunk = chunk or chunk_words(dev)
+    n1c, n1r = len(idx.csa), len(idx.r_coord)
+    Wc, Wr = (n1c + 31) // 32 + 1, (n1r + 31) // 32 + 1
+    sel_cat = torch.empty((Wc + Wr, 2), dtype=torch.int32, device=dev)
+
+    def stops(v):
+        """Ranks of a chunk whose coordinate (uint32 bits in int32) is a
+        multiple of intv."""
+        if intv & (intv - 1) == 0:
+            return (v & (intv - 1)) == 0
+        return ((v.long() & 0xFFFFFFFF) % intv) == 0
+
+    def keep_c(v, r0):
+        mask = stops(v)
+        if r0 == 0:
+            # rank 0 holds the sa[0] = 0xFFFFFFFF quirk; its position is n
+            mask[0] = (n1c - 1) % intv == 0
+        return mask, v         # the stored value keeps the quirk
+
+    sharp = np.asarray(idx.sharp_bases, dtype=np.uint32)
+
+    def keep_r(v, r0):
+        mask = (v != -1) & stops(v)
+        a, b = max(sharp_lo, r0), min(sharp_hi, r0 + len(v))
+        if a < b:
+            mask[a - r0 : b - r0] = True
+            v = v.clone()      # the CPU's chunk is a view of r_coord
+            v[a - r0 : b - r0] = host_chunk(
+                sharp.view(np.int32), a - sharp_lo, b - sharp_lo, 0, dev)
+        return mask, v
+
+    c_samples = _compact_rows(idx.csa, keep_c, sel_cat[:Wc], chunk)
+    r_samples = _compact_rows(idx.r_coord, keep_r, sel_cat[Wc:], chunk)
+    n_c = sum(len(t) for t in c_samples)
+    if not sum(len(t) for t in r_samples):
+        # zero-SNP index: no local patterns at all; one dummy slot keeps
+        # gathers in bounds (no R lane is ever active)
+        r_samples = [torch.tensor([-2**31], dtype=torch.int32, device=dev)]
+    samples_cat = torch.cat(c_samples + r_samples)
+    del c_samples, r_samples
+    c_words = (len(idx.cbwt) + 7) // 8 + 1
+    syms_cat = torch.empty(c_words + (len(idx.rbwt) + 7) // 8 + 1,
+                           dtype=torch.int32, device=dev)
+    pack_words_into(idx.cbwt, syms_cat[:c_words], chunk)
+    pack_words_into(idx.rbwt, syms_cat[c_words:], chunk)
+    return SampledSA(sel_cat=sel_cat, samples_cat=samples_cat,
+                     syms_cat=syms_cat, c_words=c_words, c_sel_rows=Wc,
+                     c_n_samples=n_c, sharp_lo=sharp_lo, sharp_hi=sharp_hi,
+                     intv=intv, max_r_walk=intv)
+
+
+def _compact_rows(vals: np.ndarray, keep, sel: torch.Tensor, chunk: int):
+    """One family of the sampled tables: `vals` (uint32 per rank) sent to
+    sel's device 32 * chunk ranks at a time, keep(v, first rank) -> (stop
+    mask, values) on each; the mask's select rows are written into `sel`
+    and the stops' values, in rank order, returned as a list of int32
+    tensors."""
+    dev = sel.device
+    carry = torch.zeros((), dtype=torch.int64, device=dev)
+    out = []
+    for w0 in range(0, sel.shape[0], chunk):
+        w1 = min(w0 + chunk, sel.shape[0])
+        r0 = 32 * w0
+        r1 = max(r0, min(32 * w1, len(vals)))
+        mask, v = keep(host_chunk(vals.view(np.int32), r0, r1, 0, dev), r0)
+        flags = torch.zeros(32 * (w1 - w0), dtype=torch.uint8, device=dev)
+        flags[: r1 - r0] = mask
+        carry = write_rows(sel[w0:w1],
+                           flag_words(flags.view(torch.int64)), carry)
+        out.append(v[mask])
+    return out
+
+
+def check_modes(idx: SaltIndex, sa_mode: str) -> None:
+    if sa_mode not in ("full", "sampled"):
+        raise ValueError(f"sa_mode={sa_mode!r}: expected 'full' or 'sampled'")
+    if idx.r_lkt_sp is None:
+        raise ValueError("index missing r_lkt tables; rebuild with current "
+                         "version")
+
+
 def to_device_index(idx: SaltIndex, device, sa_mode: str = "full",
                     sa_intv: int = 8):
     """sa_mode="full": one-gather locate, 4 bytes a rank on the device;
     returns a DeviceIndex.  sa_mode="sampled": bounded LF-walk locate
     over the SampledSA tables; the rank planes of the two families share
     one tensor (C planes, then R planes), sa_cat is a placeholder, and
-    the result is (DeviceIndex, SampledSA)."""
-    if sa_mode not in ("full", "sampled"):
-        raise ValueError(f"sa_mode={sa_mode!r}: expected 'full' or 'sampled'")
-    if idx.r_lkt_sp is None:
-        raise ValueError("index missing r_lkt tables; rebuild with current "
-                         "version")
+    the result is (DeviceIndex, SampledSA).  Every table but the copied
+    ones is built on `device` (module docstring)."""
+    check_modes(idx, sa_mode)
+    dev = torch.device(device)
+    cfreq_c = np.append(idx.c_l2, 0)
+    cfreq_r = np.append(idx.r_cumfreq, 0)
+    if sa_mode == "sampled":
+        # first: its compaction's transient (the samples twice) is then
+        # the only thing on the device
+        sampled = sampled_sa_on(idx, dev, sa_intv)
+        ri_c, ri_r = rank_index_pair_on(dev, idx.cbwt, cfreq_c, idx.rbwt,
+                                        cfreq_r)
+        sa_cat = torch.zeros(2, dtype=torch.int32, device=dev)  # never read
+        c_sa_len = 1
+    else:
+        ri_c = rank_index_on(dev, idx.cbwt, cfreq_c)
+        ri_r = rank_index_on(dev, idx.rbwt, cfreq_r)
+        c_sa_len = len(idx.csa)
+        sa_cat = full_sa_cat(idx, dev)
+    r_lkt_sp, r_lkt_ep = canonical_r_lkt(idx.r_lkt_sp, idx.r_lkt_ep)
+    dix = DeviceIndex(
+        ri_c=ri_c,
+        ri_r=ri_r,
+        lkt=u32_table(idx.lkt).to(dev),
+        r_lkt_sp=u32_table(r_lkt_sp).to(dev),
+        r_lkt_ep=u32_table(r_lkt_ep).to(dev),
+        sa_cat=sa_cat,
+        mixref_words=pack_words_into(idx.mixref, torch.empty(
+            (len(idx.mixref) + 7) // 8 + 2, dtype=torch.int32, device=dev)),
+        l_pac=idx.l_pac,
+        l_seed=idx.l_seed,
+        c_sa_len=c_sa_len,
+    )
+    return (dix, sampled) if sa_mode == "sampled" else dix
+
+
+def full_sa_cat(idx: SaltIndex, dev) -> torch.Tensor:
+    """csa ++ r_coord on `dev`, the two parts copied into place: no host
+    copy of the concatenation (18 GB at 3.1 G bases)."""
+    c_sa_len = len(idx.csa)
+    sa_cat = torch.empty(c_sa_len + len(idx.r_coord), dtype=torch.int32,
+                         device=dev)
+    sa_cat[:c_sa_len].copy_(u32_table(idx.csa))
+    sa_cat[c_sa_len:].copy_(u32_table(idx.r_coord))
+    return sa_cat
+
+
+def host_route_index(idx: SaltIndex, device="cpu", sa_mode: str = "full",
+                     sa_intv: int = 8):
+    """to_device_index's result built in numpy on the host and copied to
+    `device`: the reference of the device builders."""
+    check_modes(idx, sa_mode)
     dev = torch.device(device)
     r_lkt_sp, r_lkt_ep = canonical_r_lkt(idx.r_lkt_sp, idx.r_lkt_ep)
     ri_c = build_rank_index(idx.cbwt, np.append(idx.c_l2, 0))
@@ -250,12 +429,7 @@ def to_device_index(idx: SaltIndex, device, sa_mode: str = "full",
         c_sa_len = 1
     else:
         c_sa_len = len(idx.csa)
-        # the two parts copied into place: no host copy of csa ++ r_coord
-        # (18 GB at 3.1 G bases)
-        sa_cat = torch.empty(c_sa_len + len(idx.r_coord), dtype=torch.int32,
-                             device=dev)
-        sa_cat[:c_sa_len].copy_(u32_table(idx.csa))
-        sa_cat[c_sa_len:].copy_(u32_table(idx.r_coord))
+        sa_cat = full_sa_cat(idx, dev)
     ri_c, ri_r = rank_indexes_to(dev, ri_c, ri_r)
     dix = DeviceIndex(
         ri_c=ri_c,

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -53,14 +54,16 @@ def _mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def _peak_rss() -> int:
-    """This process's own peak resident bytes (VmHWM).  ru_maxrss would
-    start from the parent's peak, which a child inherits across fork."""
+def _peak_rss():
+    """(peak resident bytes, 1 if they are this process's own (VmHWM), 0
+    if they come from ru_maxrss): where /proc/self/status has no VmHWM,
+    ru_maxrss, which starts from the parent's peak that a child inherits
+    across fork, so an upper bound."""
     with open("/proc/self/status") as fh:
         for line in fh:
             if line.startswith("VmHWM:"):
-                return int(line.split()[1]) * 1024
-    raise RuntimeError("no VmHWM in /proc/self/status")
+                return int(line.split()[1]) * 1024, 1
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024, 0
 
 
 def _parse(argv):
@@ -143,12 +146,12 @@ def build_child(prefix: str, which: str) -> int:
     save_index(idx, prefix if which == "mono" else f"{prefix}.shard{which}",
                compress=False)
     save_s = time.time() - t0
-    rss = _peak_rss()
+    rss, own = _peak_rss()
     print(f"SHARD {which} bases {idx.l_pac} build_s {build_s:.1f} "
           f"save_s {save_s:.1f} rss_gb {rss / 1e9:.2f} "
           f"b_per_base {rss / idx.l_pac:.1f} c_sa_len {len(idx.csa)} "
-          f"r_text_len {idx.r_text_len} torch {int('torch' in sys.modules)}",
-          flush=True)
+          f"r_text_len {idx.r_text_len} torch {int('torch' in sys.modules)} "
+          f"vmhwm {own}", flush=True)
     return 0
 
 

@@ -82,6 +82,7 @@ def test_build_sharded_writes_what_the_cli_reads(built):
     assert rows[4]["which"] == "mono" and rows[4]["torch"] == 0
     assert sum(r["bases"] for r in rows[:4]) == rows[4]["bases"] == GENOME
     assert all(r["rss_gb"] > 0 and r["build_s"] >= 0 for r in rows)
+    assert all(r["vmhwm"] == 1 for r in rows)       # this kernel has VmHWM
     with open(prefix + ".shards.json") as fh:
         man = json.load(fh)
     assert man == {"n_shards": 4, "bins": [[0, 1], [2, 3], [4, 5], [6, 7]]}
@@ -149,3 +150,20 @@ def test_save_and_load(tmp_path, monkeypatch):
     assert re.search(r"bundle loaded in [\d.]+s \(2M bases", log)
     m = re.search(r"SE full accuracy: (\d+)/(\d+) primaries within 5bp", log)
     assert int(m[1]) == int(m[2]) == 512
+
+
+def test_peak_rss_without_vmhwm(monkeypatch):
+    """Where /proc/self/status has no VmHWM (some sandboxed kernels), a
+    build reports ru_maxrss and marks it as not its own peak."""
+    assert build_sharded._peak_rss()[1] == 1
+    real_open = open
+
+    def status_without_vmhwm(path, *a, **k):
+        if path == "/proc/self/status":
+            return io.StringIO("Name:\tpython\nVmRSS:\t 1000 kB\n")
+        return real_open(path, *a, **k)
+
+    monkeypatch.setattr(build_sharded, "open", status_without_vmhwm,
+                        raising=False)
+    rss, own = build_sharded._peak_rss()
+    assert own == 0 and rss > 1000 * 1024

@@ -55,9 +55,10 @@ def test_walk_finds_the_package():
                  "salt_tpu_torch.sim.genome_gen", "salt_tpu_torch.sim.wgsim",
                  "salt_tpu_torch.etl.snp_etl",
                  "salt_tpu_torch.eval.wgsim_eval",
-                 "salt_tpu_torch.eval.readtools"):
+                 "salt_tpu_torch.eval.readtools",
+                 "salt_tpu_torch.tools.bench_configs"):
         assert name in MODULES
-    assert len(MODULES) >= 44
+    assert len(MODULES) >= 45
 
 
 def test_no_module_sets_up_a_process_group():
