@@ -39,7 +39,10 @@
    with no SNP, each in full and in sampled mode, loaded by
    to_device_index (planes, packed words and sampled tables built on the
    card) and by host_route_index (numpy on the host, then copied): every
-   tensor bit-equal, both routes' seconds and peak device memory.
+   tensor bit-equal, both routes' seconds and peak device memory.  In
+   phases 5 and 6 the SE reads also go through an aligner over the
+   host route's index and the aligner over the card-built one, in turns,
+   each mode.
 5. Slice phases on one chr21-scale SNP-aware index (45M bases in 8
    contigs, 1 SNP per 300 bp) built in process, the 4 sub-indexes of the
    sharded aligner beside it: SE with Landau-Vishkin extension, SE with
@@ -1175,6 +1178,20 @@ def rate_turns(tag, first, second, recs):
     return rates
 
 
+def route_turns(idx, al, opts, recs, dev):
+    """The timed reads over al's index (to_device_index's, built on the
+    card) and over host_route_index's, in turns, with the same options."""
+    host = SEAligner(idx, opts, device=dev)
+    built = host_route_index(idx, dev, opts.sa_mode, opts.sa_intv)
+    host.dix, host.sampled = (built if opts.sa_mode == "sampled"
+                              else (built, None))
+    torch.cuda.empty_cache()
+    timed_recs = recs[BATCH : BATCH * (1 + N_TIMED)]
+    host.align_records(timed_recs[:BATCH])
+    rate_turns(f"{opts.sa_mode} index route", ("host route", host),
+               ("on card", al), timed_recs)
+
+
 def mode_turns(idx, al_sampled, opts, recs, dev):
     """Full and sampled mode in turns on the timed reads."""
     al_full = SEAligner(idx, dataclasses.replace(opts, sa_mode="full"),
@@ -1204,6 +1221,7 @@ def sampled_phase(idx, recs, truth, dev, full_bytes, se_sam, pe_reads, pe_sam):
           flush=True)
     resolver_check(idx, al, dev)
     mode_turns(idx, al, opts, recs, dev)
+    route_turns(idx, al, opts, recs, dev)
     del al
     torch.cuda.empty_cache()
 
@@ -1939,10 +1957,11 @@ def main() -> int:
         for name, c in counts.items():
             launches[name][path] = c
 
-    counts, al, _opts, se_warm, se_out = se_phase(
+    counts, al, se_opts, se_warm, se_out = se_phase(
         "se", idx, recs, truth, dev, ("lv_distance",), N_TIMED)
     note("se_lv", counts)
     busy_share(al, recs[BATCH : 2 * BATCH])
+    route_turns(idx, al, se_opts, recs, dev)
     full_bytes = al.dix.sa_cat.numel() * al.dix.sa_cat.element_size()
     mono_bytes = al.dix.table_bytes()
     del al

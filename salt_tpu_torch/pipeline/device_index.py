@@ -286,10 +286,8 @@ def sampled_sa_on(idx: SaltIndex, device, intv: int = 8,
 
     def stops(v):
         """Ranks of a chunk whose coordinate (uint32 bits in int32) is a
-        multiple of intv."""
-        if intv & (intv - 1) == 0:
-            return (v & (intv - 1)) == 0
-        return ((v.long() & 0xFFFFFFFF) % intv) == 0
+        multiple of intv; one int64 copy of the chunk, worked in place."""
+        return v.long().bitwise_and_(0xFFFFFFFF).remainder_(intv) == 0
 
     def keep_c(v, r0):
         mask = stops(v)

@@ -18,7 +18,8 @@ P.shard{i} and P.shards.json, and with --monolithic the whole-genome
 bundle P as well (built alone, after the shards).  `cli aln --shards N P`
 and `bench_large 0 --load P --shards N` read the result.  Bundles are
 stored uncompressed.  Prints one SHARD line a shard and a table of
-build seconds, save seconds, peak RSS and bytes a base.
+build seconds, save seconds, peak RSS and bytes a base (peak RSS is nan,
+not measured, where /proc/self/status keeps no VmHWM).
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import resource
 import subprocess
 import sys
 import time
@@ -54,16 +54,16 @@ def _mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def _peak_rss():
-    """(peak resident bytes, 1 if they are this process's own (VmHWM), 0
-    if they come from ru_maxrss): where /proc/self/status has no VmHWM,
-    ru_maxrss, which starts from the parent's peak that a child inherits
-    across fork, so an upper bound."""
+def _peak_rss() -> float:
+    """This process's own peak resident bytes (VmHWM); nan, not measured,
+    where /proc/self/status has none.  ru_maxrss is no stand-in: a child
+    inherits its parent's peak across fork, and some kernels count it
+    otherwise."""
     with open("/proc/self/status") as fh:
         for line in fh:
             if line.startswith("VmHWM:"):
-                return int(line.split()[1]) * 1024, 1
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024, 0
+                return int(line.split()[1]) * 1024
+    return float("nan")
 
 
 def _parse(argv):
@@ -146,12 +146,12 @@ def build_child(prefix: str, which: str) -> int:
     save_index(idx, prefix if which == "mono" else f"{prefix}.shard{which}",
                compress=False)
     save_s = time.time() - t0
-    rss, own = _peak_rss()
+    rss = _peak_rss()
     print(f"SHARD {which} bases {idx.l_pac} build_s {build_s:.1f} "
           f"save_s {save_s:.1f} rss_gb {rss / 1e9:.2f} "
           f"b_per_base {rss / idx.l_pac:.1f} c_sa_len {len(idx.csa)} "
-          f"r_text_len {idx.r_text_len} torch {int('torch' in sys.modules)} "
-          f"vmhwm {own}", flush=True)
+          f"r_text_len {idx.r_text_len} torch {int('torch' in sys.modules)}",
+          flush=True)
     return 0
 
 
@@ -211,7 +211,7 @@ def parse_shard_line(line: str) -> dict:
     f = line.split()
     out = {"which": f[1]}
     for k, v in zip(f[2::2], f[3::2]):
-        out[k] = float(v) if "." in v else int(v)
+        out[k] = int(v) if v.isdigit() else float(v)    # nan: not measured
     return out
 
 

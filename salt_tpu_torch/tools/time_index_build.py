@@ -6,11 +6,11 @@ by build_rank_index + pack_nibbles on the host, in turns host, device,
 device, host, each result checked bit-equal.
 
     python -m salt_tpu_torch.tools.time_index_build [N] [--device D]
-        [--threads T]
 
-N defaults to 100,000,000; --device to cpu; --threads (torch's intra-op
-threads, default 1) applies to the CPU.  On a card the device times end
-in a synchronize and include the copies of the symbols.
+N defaults to 100,000,000; --device to cuda (raises without a card;
+`--device cpu` times the torch route on the CPU).  torch runs one
+intra-op thread, as the CPU tests do.  On a card the device times end in
+a synchronize and include the copies of the symbols.
 """
 
 from __future__ import annotations
@@ -42,11 +42,10 @@ def inputs(n: int, seed: int = 1):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="time_index_build")
     ap.add_argument("n", nargs="?", type=int, default=100_000_000)
-    ap.add_argument("--device", default="cpu")
-    ap.add_argument("--threads", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = checked_device(args.device)
-    torch.set_num_threads(args.threads)
+    torch.set_num_threads(1)
     syms, cfreq, mix = inputs(args.n)
 
     def host():

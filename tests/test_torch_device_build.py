@@ -186,7 +186,7 @@ def test_packed_words_match_host_route(index, chunk):
 def test_sampled_tables_match_host_route(index, intv, chunk):
     """Every field of SampledSA: the rank-0 quirk, the '#' range with its
     sharp_bases, the select rows, the one-slot dummy of a zero-SNP index
-    (intv 5 takes the remainder path, 1 samples every rank)."""
+    (intv 5 is no power of two, 1 samples every rank)."""
     kind, idx, pidx = index
     got = tdi.sampled_sa_on(pidx, "cpu", intv, chunk)
     _same(got, tdi.build_sampled_sa(pidx, intv))
@@ -266,16 +266,17 @@ def test_same_sam_on_fixture_reads(mode):
 
 def test_time_index_build_tool(capsys):
     """tools/time_index_build.py holds both routes equal and reports four
-    turns; it refuses a card that is not there."""
+    turns; by default it asks for the card, and refuses one that is not
+    there."""
     from salt_tpu_torch.tools import time_index_build
 
     threads = torch.get_num_threads()
     try:
-        assert time_index_build.main(["100000"]) == 0
+        assert time_index_build.main(["100000", "--device", "cpu"]) == 0
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert "bit-equal: True" in out and out.count(" s;") == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA"):
-            time_index_build.main(["1000", "--device", "cuda"])
+            time_index_build.main(["1000"])
