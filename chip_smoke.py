@@ -78,7 +78,27 @@
    1 of 2 and --merge, all the same SAM; SALT_TPU_TRACE gives a Chrome
    trace that holds CUDA kernel events.
 
-11. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
+11. Accuracy, by tools/run_accuracy.py's steps (the reference's
+   run_test.sh protocol: wgsim read pairs, the simulated substitutions
+   fed back as known SNPs, alneval against the truth in the read names).
+   Both protocols' simulation and index build start in processes of their
+   own at the beginning of the run (about 4 minutes of host work each),
+   beside phases 1-10.  Protocol A: a 45,000,000-base uniform genome,
+   20,000 error-free pairs, SE and PE on the card with the gate max_err =
+   0 (any wrong read fails), and SE again in sampled mode with SAM equal
+   to full mode's.  Protocol B, README's config 3b: a 45,000,000-base
+   repeat-rich genome, 5,000 pairs with 1% errors and 10% indels, SE and
+   PE, report-only; K1 must launch, K2's launches in PE rescue are
+   printed, and the first 512 reads and 512 pairs give the same SAM on
+   the CPU.
+12. The stage profile (tools/profile_se.py) at 8,192 reads over protocol
+   A's index: seed, seed+locate, seed+locate+verify, the ungapped step,
+   the gapped step on 64 rows and the sampled ungapped step, each with
+   its first call, steady host time and a torch.profiler trace (device
+   busy time, kernels, launches, copies, synchronizations), then the
+   functions under the host finalize by cumulative time.
+
+13. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
    that code 0's exclusive count passes 2^31 (and the C-array of every
    later code), its planes built on the card by ops/rank.py:rank_index_on
    and on the host by build_rank_index (peak of its numpy arrays
@@ -94,6 +114,7 @@ kernels' JSON record and {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, when no CUDA device is available.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -114,7 +135,8 @@ import torch
 from salt_tpu_torch import cli
 from salt_tpu_torch.constants import GAP_WINDOW_PAD, NOGAP_MAX_DIFF
 from salt_tpu_torch.index.build import build_index_from_data
-from salt_tpu_torch.io.fasta import SeqRecord
+from salt_tpu_torch.index.store import load_index, save_index
+from salt_tpu_torch.io.fasta import SeqRecord, read_records
 from salt_tpu_torch.io.snp import SnpBlock
 from salt_tpu_torch.ops.locate import resolve_sampled
 from salt_tpu_torch.ops.lv import lv_distance_plain, window_nibbles
@@ -157,6 +179,7 @@ from salt_tpu_torch.pipeline.engine import (
 )
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
 from salt_tpu_torch.polish import polish as polish_mod
+from salt_tpu_torch.tools import profile_se, run_accuracy
 from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.utils.native import load_native
 
@@ -1831,6 +1854,184 @@ def device_build_phase(idx, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- accuracy and profile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ACC_GENOME_LEN = 45_000_000
+# protocol A: the reference's run_test.sh protocol (error-free reads, the
+# simulated substitutions as known SNPs) at chr21 scale, gate max_err = 0
+PROTOCOL_A = ["20000", "--genome-synth", str(ACC_GENOME_LEN),
+              "--genome-config", "uniform"]
+# protocol B: README's config 3b, repeat-rich, 1% errors, 10% indels;
+# report-only, as in salt_tpu
+PROTOCOL_B = ["5000", "--genome-synth", str(ACC_GENOME_LEN),
+              "--genome-config", "repeat", "--err-rate", "0.01",
+              "--indel-frac", "0.1"]
+ACC_CPU_CHECK = 512     # protocol B's reads and pairs aligned on the CPU too
+ACC_MAPPED_FLOOR = 0.9  # protocol A: the share of reads (ends) mapped
+PROFILE_BATCH = 8192
+
+
+def prepare_protocol(argv, prefix):
+    """Simulate and build one protocol's index and save it at `prefix`
+    (run in a child process by Protocols)."""
+    t0 = time.perf_counter()
+    args = run_accuracy.parse_args(argv)
+    idx = run_accuracy.build(args, run_accuracy.simulate(args))
+    save_index(idx, prefix, compress=False)
+    print(f"[harness] saved; {time.perf_counter() - t0:.1f} s in all",
+          flush=True)
+
+
+class Protocols:
+    """The protocols' simulation and index build ({tag: run_accuracy
+    argv}), each in a process of its own, started together at the
+    beginning of the run so that they go on beside the earlier phases
+    (host work: numpy and the native SA-IS).  stop() ends them and removes
+    their directory; it also runs at exit."""
+
+    def __init__(self, argvs):
+        self.workdir = tempfile.mkdtemp(prefix="salt_accuracy_")
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        atexit.register(self.stop)
+        for tag, argv in argvs.items():
+            argv = argv + ["--workdir", self.workdir]
+            log = open(os.path.join(self.workdir, f"{tag}.log"), "w")
+            code = ("import chip_smoke; chip_smoke.prepare_protocol("
+                    f"{argv!r}, {self.prefix(tag)!r})")
+            self.procs[tag] = (argv, log, subprocess.Popen(
+                [sys.executable, "-c", code], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT))
+
+    def prefix(self, tag):
+        return os.path.join(self.workdir, f"idx_{tag}")
+
+    def get(self, tag):
+        """(products, index) of protocol `tag` once its process has ended;
+        raises if it failed."""
+        argv, log, proc = self.procs[tag]
+        t0 = time.perf_counter()
+        rc = proc.wait()
+        log.close()
+        text = open(log.name).read().strip()
+        print(f"[accuracy {tag}] {' '.join(argv[:-2])}: waited "
+              f"{time.perf_counter() - t0:.1f} s for its process "
+              f"(started {t0 - self.t0:.1f} s before), which printed:\n"
+              f"{text}", flush=True)
+        if rc:
+            raise AssertionError(f"protocol {tag}: simulation or build "
+                                 f"failed with exit code {rc}")
+        prod = run_accuracy.simulate(run_accuracy.parse_args(argv))
+        t0 = time.perf_counter()
+        idx = load_index(self.prefix(tag))
+        print(f"[accuracy {tag}] index loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return prod, idx
+
+    def stop(self):
+        for _argv, log, proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def counted(align, *args):
+    """One run_accuracy step with every launch count set to 0 just
+    before it; returns (its Run, {kernel: launches})."""
+    reset_counts()
+    run = align(*args)
+    torch.cuda.synchronize()
+    return run, {name: kern.launches for name, kern in KERNELS.items()}
+
+
+def accuracy_phase(dev, protocols):
+    """Protocol A on the card (SE and PE, gate max_err = 0: raises on any
+    wrong read), A's SE in sampled mode (SAM equal to full mode's), and
+    protocol B (SE and PE, report-only; K1 must launch, K2's launches in
+    PE rescue printed, the card's SAM equal to the CPU's on the first
+    ACC_CPU_CHECK reads and pairs).  Returns ({path: launches}, A's
+    index, A's R1 records)."""
+    t_phase = time.perf_counter()
+    by_path = {}
+    prod, idx = protocols.get("A")
+    recs1, recs2 = (list(read_records(prod.r1)),
+                    list(read_records(prod.r2)))
+    se, by_path["accuracy_a_se"] = counted(run_accuracy.align_se, idx, recs1,
+                                           {}, dev)
+    run_accuracy.report("accuracy A SE", se, len(recs1), "reads")
+    pe, by_path["accuracy_a_pe"] = counted(run_accuracy.align_pe, idx, recs1,
+                                           recs2, {}, dev)
+    run_accuracy.report("accuracy A PE", pe, len(recs1), "pairs")
+    for tag, run, n in (("SE", se, len(recs1)), ("PE", pe, 2 * len(recs1))):
+        if run.ev.n_wrong:
+            raise AssertionError(f"protocol A {tag}: {run.ev.n_wrong} wrong "
+                                 "at max_err = 0")
+        if run.ev.n_mapped < ACC_MAPPED_FLOOR * n:
+            raise AssertionError(f"protocol A {tag}: {run.ev.n_mapped} of "
+                                 f"{n} mapped")
+    sampled, by_path["accuracy_a_sampled"] = counted(
+        run_accuracy.align_se, idx, recs1, {"sa_mode": "sampled"}, dev)
+    run_accuracy.report("accuracy A sampled SE", sampled, len(recs1), "reads")
+    assert_same_sam("accuracy A", "sampled SE against full mode", se.sam,
+                    sampled.sam)
+    print(f"[accuracy A] PASS; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    prod_b, idx_b = protocols.get("B")
+    b1, b2 = list(read_records(prod_b.r1)), list(read_records(prod_b.r2))
+    se, by_path["accuracy_b_se"] = counted(run_accuracy.align_se, idx_b, b1,
+                                           {}, dev)
+    run_accuracy.report("accuracy B SE", se, len(b1), "reads")
+    pe, by_path["accuracy_b_pe"] = counted(run_accuracy.align_pe, idx_b, b1,
+                                           b2, {}, dev)
+    run_accuracy.report("accuracy B PE", pe, len(b1), "pairs")
+    k1 = se.launches["lv_distance"] + pe.launches["lv_distance"]
+    print(f"[accuracy B] K1 launches {k1} (SE {se.launches['lv_distance']}, "
+          f"PE {pe.launches['lv_distance']}); K2 launches in PE rescue "
+          f"{pe.launches['sw_score']}", flush=True)
+    if k1 == 0:
+        raise AssertionError("protocol B never launched K1")
+    n = ACC_CPU_CHECK
+    t1 = time.perf_counter()
+    cpu = run_accuracy.align_se(idx_b, b1[:n], {}, "cpu")
+    assert_same_sam("accuracy B", f"CPU rerun of {n} SE reads "
+                    f"({time.perf_counter() - t1:.1f} s)", cpu.sam, se.sam[:n])
+    t1 = time.perf_counter()
+    cpu = run_accuracy.align_pe(idx_b, b1[:n], b2[:n], {}, "cpu")
+    assert_same_sam("accuracy B", f"CPU rerun of {n} pairs "
+                    f"({time.perf_counter() - t1:.1f} s)", cpu.sam,
+                    pe.sam[: 2 * n])
+    del idx_b
+    protocols.stop()
+    print(f"[accuracy B] {time.perf_counter() - t0:.1f} s; accuracy phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path, idx, recs1
+
+
+def profile_phase(dev, idx, recs):
+    """tools/profile_se.py at B = PROFILE_BATCH over protocol A's index and
+    reads: every part printed with its device trace.  Returns the
+    launches of the run."""
+    t0 = time.perf_counter()
+    reset_counts()
+    got = profile_se.profile(idx, recs, PROFILE_BATCH, dev,
+                             out=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = {name: kern.launches for name, kern in KERNELS.items()}
+    parts = [row["part"] for row in got["parts"]]
+    if len(parts) != 6 or any(row["trace"] is None
+                              or row["trace"]["kernels"] == 0
+                              for row in got["parts"]):
+        raise AssertionError(f"profile: parts {parts} without a device trace")
+    print(f"[profile] phase {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts}", flush=True)
+    return counts
+
+
 PAST_N = 2**31 + 2**26        # symbols of the past-2^31 phase's BWT
 PAST_ZERO_SHARE = 0.985       # code 0's share: its count passes 2^31
 PAST_QUERIES = 2**16          # ranks a symbol
@@ -1922,6 +2123,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    protocols = Protocols({"A": PROTOCOL_A, "B": PROTOCOL_B})
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -2000,6 +2202,12 @@ def main() -> int:
                     batches_sent=[int(largest[3].shape[0])])
     print_times(f"lv bytes at the largest batch polish sent {lvb_sent['shape']}",
                 lvb_sent)
+    by_path, acc_idx, acc_recs = accuracy_phase(dev, protocols)
+    for path, counts in by_path.items():
+        note(path, counts)
+    note("profile_se", profile_phase(dev, acc_idx, acc_recs))
+    del acc_idx, acc_recs
+    torch.cuda.empty_cache()
     past_2g_phase(dev)
     torch.cuda.synchronize()
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -56,7 +56,10 @@ def test_walk_finds_the_package():
                  "salt_tpu_torch.etl.snp_etl",
                  "salt_tpu_torch.eval.wgsim_eval",
                  "salt_tpu_torch.eval.readtools",
-                 "salt_tpu_torch.tools.bench_configs"):
+                 "salt_tpu_torch.tools.bench_configs",
+                 "salt_tpu_torch.tools.run_accuracy",
+                 "salt_tpu_torch.tools.profile_se",
+                 "salt_tpu_torch.tools.oracle_diff"):
         assert name in MODULES
     assert len(MODULES) >= 45
 
