@@ -98,7 +98,16 @@
    busy time, kernels, launches, copies, synchronizations), then the
    functions under the host finalize by cumulative time.
 
-13. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
+13. tools/bench.py (salt_tpu's bench.py) at its own sizes: SE (24,576
+   reads, a 5% SNP overlay) and PE (3 x 8,192 pairs) on a 96,000-base
+   stand-in for the bundled test genome in 4 contigs, and the scale run
+   on a 45,000,000-base repeat-rich genome whose index is built in a
+   process of its own from the beginning of the run, beside phases 1-12.
+   Each run's rate, stage seconds and launches; bench's JSON line printed
+   with the prefix "[bench] "; the busy share of one scale batch; the
+   first 512 reads (pairs) of each run give the same SAM on the CPU.
+
+14. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
    that code 0's exclusive count passes 2^31 (and the C-array of every
    later code), its planes built on the card by ops/rank.py:rank_index_on
    and on the host by build_rank_index (peak of its numpy arrays
@@ -179,7 +188,7 @@ from salt_tpu_torch.pipeline.engine import (
 )
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
 from salt_tpu_torch.polish import polish as polish_mod
-from salt_tpu_torch.tools import profile_se, run_accuracy
+from salt_tpu_torch.tools import bench, profile_se, run_accuracy
 from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.utils.native import load_native
 
@@ -1884,13 +1893,15 @@ def prepare_protocol(argv, prefix):
 
 
 class Protocols:
-    """The protocols' simulation and index build ({tag: run_accuracy
-    argv}), each in a process of its own, started together at the
-    beginning of the run so that they go on beside the earlier phases
-    (host work: numpy and the native SA-IS).  stop() ends them and removes
-    their directory; it also runs at exit."""
+    """Index builds ({tag: argv}), each in a process of its own that runs
+    chip_smoke.<prepare>(argv, prefix), started together at the beginning
+    of the run so that they go on beside the earlier phases (host work:
+    numpy and the native SA-IS).  By default the accuracy protocols'
+    simulation and build (argv: run_accuracy's); `label` tags the lines.
+    stop() ends them and removes their directory; it also runs at exit."""
 
-    def __init__(self, argvs):
+    def __init__(self, argvs, prepare="prepare_protocol", label="accuracy"):
+        self.label = label
         self.workdir = tempfile.mkdtemp(prefix="salt_accuracy_")
         self.t0 = time.perf_counter()
         self.procs = {}
@@ -1898,7 +1909,7 @@ class Protocols:
         for tag, argv in argvs.items():
             argv = argv + ["--workdir", self.workdir]
             log = open(os.path.join(self.workdir, f"{tag}.log"), "w")
-            code = ("import chip_smoke; chip_smoke.prepare_protocol("
+            code = (f"import chip_smoke; chip_smoke.{prepare}("
                     f"{argv!r}, {self.prefix(tag)!r})")
             self.procs[tag] = (argv, log, subprocess.Popen(
                 [sys.executable, "-c", code], cwd=ROOT, stdout=log,
@@ -1907,21 +1918,27 @@ class Protocols:
     def prefix(self, tag):
         return os.path.join(self.workdir, f"idx_{tag}")
 
-    def get(self, tag):
-        """(products, index) of protocol `tag` once its process has ended;
-        raises if it failed."""
+    def wait(self, tag):
+        """Wait for `tag`'s process and print what it printed; raises if
+        it failed."""
         argv, log, proc = self.procs[tag]
         t0 = time.perf_counter()
         rc = proc.wait()
         log.close()
         text = open(log.name).read().strip()
-        print(f"[accuracy {tag}] {' '.join(argv[:-2])}: waited "
+        print(f"[{self.label} {tag}] {' '.join(argv[:-2])}: waited "
               f"{time.perf_counter() - t0:.1f} s for its process "
               f"(started {t0 - self.t0:.1f} s before), which printed:\n"
               f"{text}", flush=True)
         if rc:
-            raise AssertionError(f"protocol {tag}: simulation or build "
-                                 f"failed with exit code {rc}")
+            raise AssertionError(f"{tag}: simulation or build failed with "
+                                 f"exit code {rc}")
+        return argv
+
+    def get(self, tag):
+        """(products, index) of protocol `tag` once its process has ended;
+        raises if it failed."""
+        argv = self.wait(tag)
         prod = run_accuracy.simulate(run_accuracy.parse_args(argv))
         t0 = time.perf_counter()
         idx = load_index(self.prefix(tag))
@@ -1939,8 +1956,9 @@ class Protocols:
 
 
 def counted(align, *args):
-    """One run_accuracy step with every launch count set to 0 just
-    before it; returns (its Run, {kernel: launches})."""
+    """One step (of run_accuracy, of tools/bench.py) with every launch
+    count set to 0 just before it; returns (its result, {kernel:
+    launches})."""
     reset_counts()
     run = align(*args)
     torch.cuda.synchronize()
@@ -2030,6 +2048,94 @@ def profile_phase(dev, idx, recs):
     print(f"[profile] phase {time.perf_counter() - t0:.1f} s; launches "
           f"{counts}", flush=True)
     return counts
+
+
+# ---------------------------------------------------------------- bench
+
+# the bundled test genome's size (a 97 KB multi-contig FASTA), which the
+# stand-in of the bench phase takes
+BENCH_GENOME_LEN = 96_000
+BENCH_CONTIGS = 4
+BENCH_CPU_CHECK = 512   # reads (pairs) of each bench run aligned on the CPU too
+
+
+def prepare_scale(argv, prefix):
+    """Build the index of tools/bench.py's scale run (argv: the genome
+    length) and save it at `prefix` (run in a child process by Protocols)."""
+    t0 = time.perf_counter()
+    contig_data, blocks, _recs = bench.scale_fixture(int(argv[0]), BATCH)
+    t1 = time.perf_counter()
+    idx = build_index_from_data(contig_data, blocks, l_seed=19)
+    t2 = time.perf_counter()
+    save_index(idx, prefix, compress=False)
+    print(f"[bench] scale fixture {t1 - t0:.1f} s, index built in "
+          f"{t2 - t1:.1f} s, saved in {time.perf_counter() - t2:.1f} s",
+          flush=True)
+
+
+def bench_phase(dev, scale_build):
+    """tools/bench.py on the card at its own sizes: SE and PE on the
+    BENCH_GENOME_LEN-base stand-in, the scale run over the index that
+    `scale_build` made beside the earlier phases.  Each run with every
+    launch count set to 0 just before it; the card's SAM equal to the
+    CPU's on the first BENCH_CPU_CHECK reads (pairs) of each, every rate
+    above 0, the busy share of one scale batch.  Returns {path: launches}."""
+    t_phase = time.perf_counter()
+    out = lambda line: print(line, flush=True)   # noqa: E731
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="salt_bench_") as tmp:
+        contigs, blocks, reads = bench.make_fixture(bench.stand_in_genome(
+            BENCH_GENOME_LEN, BENCH_CONTIGS, tmp))
+    idx = build_index_from_data(contigs, blocks, l_seed=19)
+    print(f"[bench] {BENCH_GENOME_LEN}-base stand-in in {BENCH_CONTIGS} "
+          f"contigs, {sum(len(b.pos) for b in blocks)} SNPs, "
+          f"{len(reads)} reads", flush=True)
+
+    se, by_path["bench_se"] = counted(bench.run_se, idx, reads, BATCH, dev,
+                                      out)
+    se.aligner = None
+    pe, by_path["bench_pe"] = counted(bench.run_pe, contigs, blocks, idx,
+                                      BATCH, dev, out)
+    pe.aligner = None
+    torch.cuda.empty_cache()
+
+    scale_build.wait("scale")
+    t0 = time.perf_counter()
+    scale_idx = load_index(scale_build.prefix("scale"))
+    print(f"[bench] scale index loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    scale, by_path["bench_scale"] = counted(
+        bench.run_scale, bench.SCALE_GENOME_LEN, BATCH, dev, out, scale_idx)
+    busy_share(scale.aligner, scale.records[BATCH : 2 * BATCH],
+               tag="bench scale")
+    scale.aligner = None
+    torch.cuda.empty_cache()
+    print(f"[bench] launches: {by_path}", flush=True)
+    print("[bench] " + bench.result_line(se.rate, pe.rate, scale.rate),
+          flush=True)
+
+    n = BENCH_CPU_CHECK
+    opts = bench.se_options(BATCH)
+    for tag, index, recs, want in (
+            ("SE", idx, se.records, se.sam),
+            ("scale", scale_idx, scale.records, scale.sam)):
+        t0 = time.perf_counter()
+        cpu = SEAligner(index, opts, device="cpu").align_records(recs[:n])
+        assert_same_sam("bench", f"{tag}: CPU rerun of {n} reads "
+                        f"({time.perf_counter() - t0:.1f} s)", cpu, want[:n])
+    t0 = time.perf_counter()
+    recs1, recs2 = pe.records
+    cpu = PEAligner(idx, bench.pe_options(BATCH),
+                    device="cpu").align_pairs(recs1[:n], recs2[:n])
+    assert_same_sam("bench", f"PE: CPU rerun of {n} pairs "
+                    f"({time.perf_counter() - t0:.1f} s)", cpu,
+                    pe.sam[: 2 * n])
+    for tag, run in (("SE", se), ("PE", pe), ("scale", scale)):
+        if not run.rate > 0:
+            raise AssertionError(f"bench {tag}: rate {run.rate}")
+    scale_build.stop()
+    print(f"[bench] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path
 
 
 PAST_N = 2**31 + 2**26        # symbols of the past-2^31 phase's BWT
@@ -2124,6 +2230,8 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     protocols = Protocols({"A": PROTOCOL_A, "B": PROTOCOL_B})
+    scale_build = Protocols({"scale": [str(bench.SCALE_GENOME_LEN)]},
+                            prepare="prepare_scale", label="bench")
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -2207,6 +2315,9 @@ def main() -> int:
         note(path, counts)
     note("profile_se", profile_phase(dev, acc_idx, acc_recs))
     del acc_idx, acc_recs
+    torch.cuda.empty_cache()
+    for path, counts in bench_phase(dev, scale_build).items():
+        note(path, counts)
     torch.cuda.empty_cache()
     past_2g_phase(dev)
     torch.cuda.synchronize()

@@ -1,6 +1,6 @@
-"""salt_tpu_torch imports neither jax nor any module of salt_tpu: every
-module of the package, and chip_smoke, imports in a fresh interpreter
-with both blocked, and without nvcc or a GPU."""
+"""salt_tpu_torch imports neither jax nor any module of salt_tpu, nor the
+root bench.py: every module of the package, and chip_smoke, imports in a
+fresh interpreter with all three blocked, and without nvcc or a GPU."""
 
 import os
 import pkgutil
@@ -23,11 +23,11 @@ def _port_modules():
 
 MODULES = _port_modules()
 
-# jax and salt_tpu are made unimportable, so any import of either, direct
-# or through another module, fails the subprocess
+# jax, salt_tpu and the root bench.py are made unimportable, so any import
+# of one of them, direct or through another module, fails the subprocess
 _PROBE = """
 import importlib, sys
-BLOCKED = ("jax", "jaxlib", "salt_tpu")
+BLOCKED = ("jax", "jaxlib", "salt_tpu", "bench")
 class _Block:
     def find_spec(self, name, path=None, target=None):
         if name in BLOCKED or name.startswith(tuple(b + "." for b in BLOCKED)):
@@ -59,7 +59,8 @@ def test_walk_finds_the_package():
                  "salt_tpu_torch.tools.bench_configs",
                  "salt_tpu_torch.tools.run_accuracy",
                  "salt_tpu_torch.tools.profile_se",
-                 "salt_tpu_torch.tools.oracle_diff"):
+                 "salt_tpu_torch.tools.oracle_diff",
+                 "salt_tpu_torch.tools.bench"):
         assert name in MODULES
     assert len(MODULES) >= 45
 
@@ -79,13 +80,26 @@ def test_no_module_sets_up_a_process_group():
     assert not bad, bad
 
 
+def _probe_leaky(tmp_path, source):
+    """The probe's subprocess on a module `leaky` made of `source`."""
+    (tmp_path / "leaky.py").write_text(source)
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
+    return subprocess.run([sys.executable, "-c", _PROBE, "leaky"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
 def test_probe_refuses_a_salt_tpu_import(tmp_path):
     """The probe fails on a module that imports salt_tpu, even one of its
     modules that does not import jax."""
-    (tmp_path / "leaky.py").write_text("import salt_tpu.constants\n")
-    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
-    res = subprocess.run([sys.executable, "-c", _PROBE, "leaky"], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=120)
+    res = _probe_leaky(tmp_path, "import salt_tpu.constants\n")
+    assert res.returncode != 0 and "blocked import" in res.stderr
+
+
+def test_probe_refuses_the_root_bench(tmp_path):
+    """The probe fails on a module that imports the root bench.py, which
+    salt_tpu_torch/tools/bench.py ports and must not import."""
+    res = _probe_leaky(tmp_path, "import bench\n")
     assert res.returncode != 0 and "blocked import" in res.stderr
 
 
