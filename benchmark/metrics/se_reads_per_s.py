@@ -1,0 +1,3 @@
+def read(run):
+    """Reads returned as SAM over all the timed seconds of the window."""
+    return run["units"] / run["timed_s"]
