@@ -1672,16 +1672,19 @@ def cli_phase():
         traced = run(aln + [prefix, fq], SALT_TPU_TRACE=traces)
         assert_same_sam("cli", "aln under SALT_TPU_TRACE against aln", plain,
                         traced)
-        files = sorted(os.listdir(os.path.join(traces, "se_batch")))
-        n_kernel = 0
+        files = sorted(os.listdir(os.path.join(traces, "align_records")))
+        n_kernel, spans = 0, set()
         for name in files:
-            with open(os.path.join(traces, "se_batch", name)) as fh:
-                n_kernel += sum(e.get("cat") == "kernel"
-                                for e in json.load(fh)["traceEvents"])
-        print(f"[cli] SALT_TPU_TRACE: {len(files)} Chrome traces (one a "
-              f"batch), {n_kernel} CUDA kernel events", flush=True)
-        if len(files) != CLI_READS // 2048 or n_kernel == 0:
-            raise AssertionError("cli: the trace holds no CUDA kernel event")
+            with open(os.path.join(traces, "align_records", name)) as fh:
+                events = json.load(fh)["traceEvents"]
+            n_kernel += sum(e.get("cat") == "kernel" for e in events)
+            spans |= {e["name"] for e in events if e.get("cat") == "cpu_op"}
+        print(f"[cli] SALT_TPU_TRACE: {len(files)} Chrome trace (one a "
+              f"call), {n_kernel} CUDA kernel events, spans "
+              f"{', '.join(sorted(spans))}", flush=True)
+        if len(files) != 1 or n_kernel == 0 or "device.seed" not in spans:
+            raise AssertionError("cli: the trace holds no CUDA kernel event "
+                                 "or no span of the port")
     return counts
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import MAX_LOC_POS
+from ..utils.metrics import to_host
 
 from .rank import planes_fused, rank_excl
 from .seed import Seeds
@@ -246,7 +247,7 @@ def locate(
         pushed = torch.zeros((B, n_blocks * chunk), dtype=torch.bool,
                              device=dev)
         n_pushed = torch.zeros(B, dtype=torch.long, device=dev)
-        need = min(int(total.max()), cap) if B else 0
+        need = min(int(to_host(total.max())), cap) if B else 0
         for first in range(0, need, chunk):
             blk = slice(first, first + chunk)
             pos[:, blk], valid_push = slot_block(first, chunk)

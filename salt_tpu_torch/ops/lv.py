@@ -32,6 +32,7 @@ import torch
 
 from ..constants import GAP_WINDOW_PAD, LV_MAX_K
 
+from ..utils.metrics import count
 from . import lv_cuda
 from .uint import U32, as_i32, take, take_u32
 
@@ -50,7 +51,8 @@ def lv_distance_batch(
     text_words: bool = False,
 ) -> torch.Tensor:
     """Edit distances; inactive or unalignable -> BIG (255).  The kernel
-    on CUDA tensors, the plain version on CPU tensors."""
+    on CUDA tensors, the plain version on CPU tensors; either counts its
+    rows as k1.rows."""
     if mixref.is_cuda:
         if pat_precoded != (not text_words):
             raise NotImplementedError(
@@ -63,6 +65,7 @@ def lv_distance_batch(
             return lv_cuda.lv_distance_bytes_cuda(mixref, pos, active, seq, k,
                                                   window_pad)
         return lv_cuda.lv_distance_cuda(mixref, pos, active, seq, k, window_pad)
+    count("k1.rows", seq.shape[0])
     return lv_distance_plain(mixref, pos, active, seq, k, window_pad,
                              pat_precoded, text_words)
 

@@ -10,6 +10,7 @@ import ctypes
 import torch
 
 from ..constants import LV_MAX_K
+from ..utils.metrics import count
 from .cuda_build import MAX_READ_LEN, CudaKernel, check_tensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -49,6 +50,7 @@ def _launch(kern: CudaKernel, entry: str, ref: torch.Tensor, ref_dtype,
             ref.data_ptr(), ref.shape[0], pos.data_ptr(), active.data_ptr(),
             seq.data_ptr(), N, L, L + window_pad, k, out.data_ptr(), stream)
     kern.check(rc)
+    count("k1.rows", N)
     return out
 
 

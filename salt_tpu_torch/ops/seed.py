@@ -13,7 +13,7 @@ For every seed start p (stride `l_overlap`) of every read, in parallel:
 
 Both families step over the same bases, so each LF step and each
 extension round serves both.  The extension round count is data
-dependent: the loop reads back `any(active)` once per round.
+dependent: the loop reads back `any(active)` once per round (a host.sync).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.metrics import to_host
 from .rank import RankIndex, lf_step, rank_excl
 from .uint import as_i32, take, take_u32, ugt
 
@@ -60,7 +61,7 @@ def _greedy_extend(fams, seq, p, max_seed):
         l_ext = torch.zeros_like(k)
         st.append([ri, check_n, k, l, l_ext,
                    valid & ugt(l - k, max_seed) & (l_ext < p)])
-    while bool(torch.stack([s[5].any() for s in st]).any()):  # one read-back
+    while bool(to_host(torch.stack([s[5].any() for s in st]).any())):
         for s in st:
             ri, check_n, k, l, l_ext, active = s
             at = (p - l_ext - 1).clamp(min=0)

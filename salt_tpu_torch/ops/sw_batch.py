@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.metrics import count
 from . import sw_cuda
 
 NEG = -(2**20)
@@ -107,10 +108,11 @@ def sw_score(
 ) -> torch.Tensor:
     """(B,) int32 best local scores of B (window, read) pairs: the CUDA
     kernel on CUDA tensors (codes as uint8, ref_len as int32), the plain
-    version on CPU tensors."""
+    version on CPU tensors; either counts B x L x W as k2.cells."""
     if refs.device.type == "cuda":
         return sw_cuda.sw_score_cuda(refs, reads, ref_len, snp_mode,
                                      gap_open, gap_extend)
+    count("k2.cells", refs.shape[0] * refs.shape[1] * reads.shape[1])
     return sw_score_plain(refs, reads, ref_len, snp_mode, gap_open,
                           gap_extend)
 

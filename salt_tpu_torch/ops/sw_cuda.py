@@ -9,6 +9,7 @@ import ctypes
 
 import torch
 
+from ..utils.metrics import count
 from .cuda_build import MAX_READ_LEN, CudaKernel, check_tensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -77,4 +78,5 @@ def sw_score_launch(refs, reads, ref_len, snp_mode, gap_open=3, gap_extend=1,
             int(bool(snp_mode)), gap_open, gap_extend, out.data_ptr(), stream,
             lanes)
     SW.check(rc)
+    count("k2.cells", B * L * W)
     return out

@@ -45,6 +45,7 @@ from ..pipeline.engine import (
 )
 from ..pipeline.pe_engine import PEAligner, PEOptions
 from ..pipeline.se import pack_result, se_gapped, se_ungapped
+from ..utils.metrics import to_host
 from .sharded import (
     lift_to_global,
     partition_contigs_contiguous,
@@ -204,7 +205,7 @@ class ShardedSEAligner(SEAligner):
                 parts.append(lift_to_global(loci.pos, ok, base_off)
                              .to(self.device, non_blocking=True))
             # int64 values: positions >= 2^31 order as unsigned
-            g = torch.sort(torch.cat(parts, 1), dim=1).values.cpu().numpy()
+            g = to_host(torch.sort(torch.cat(parts, 1), dim=1).values)
             strands.append((g, g != 0xFFFFFFFF))
         return strands
 

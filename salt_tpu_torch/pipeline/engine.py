@@ -25,7 +25,7 @@ from ..constants import (
 from ..index.build import SaltIndex
 from ..io.fasta import read_records, trim_readno
 from ..io.sam import build_xa, emit_se, md_nm_tags_batch, sam_header
-from ..utils.metrics import device_trace, progress, stage
+from ..utils.metrics import count, device_trace, progress, stage, to_host
 
 from ..ops.locate import Loci
 from ..ops.lv import NT2BIT_NP, lv_cigar_host
@@ -311,7 +311,7 @@ class SEAligner:
     def _loci_host(self, out, sel):
         """[(pos, pushed)] as numpy arrays, one entry a strand: rows `sel`
         of the loci of `out`, ascending by position."""
-        return [(part.pos.cpu().numpy(), part.pushed.cpu().numpy())
+        return [(to_host(part.pos), to_host(part.pushed))
                 for part in loci_rows(out, sel)]
 
     # ---------------- device dispatch ----------------
@@ -328,94 +328,101 @@ class SEAligner:
         return fwd, rev, out, packed_dev
 
     def _complete_batch(self, handle):
-        o = self.opts
-        K = o.k_hits
-        fwd, rev, out, packed_dev = handle
-        L = fwd.shape[1]
-        with stage("device.ungapped"):
-            packed = packed_dev.cpu().numpy()
-        res = unpack_result(packed, K)
-        needs_gap = res["n_extra"][:, 0].astype(bool)
-        overflow = res["n_extra"][:, 1].astype(bool)
+        """Read a batch's ungapped result back, re-run its truncated rows
+        and check the rows without an ungapped hit with gaps (span
+        device.complete)."""
+        with stage("device.complete"):
+            o = self.opts
+            K = o.k_hits
+            fwd, rev, out, packed_dev = handle
+            L = fwd.shape[1]
+            with stage("device.ungapped"):
+                packed = to_host(packed_dev)
+            res = unpack_result(packed, K)
+            needs_gap = res["n_extra"][:, 0].astype(bool)
+            overflow = res["n_extra"][:, 1].astype(bool)
 
-        def on_device(rows):
-            return torch.as_tensor(rows, device=self.device)
+            def on_device(rows):
+                return torch.as_tensor(rows, device=self.device)
 
-        def unpack_rows(rows, packed_rows, into):
-            fr = unpack_result(packed_rows.cpu().numpy(), K)
-            into.update((r, {kk: v[i] for kk, v in fr.items()})
-                        for i, r in enumerate(rows))
-
-        # rows whose locate or compact verify was truncated: checked again
-        # in full (rare).  `moved` says where such a row's loci went:
-        # (ungapped output, row in it); every other row's are in `out`.
-        full_res, moved = {}, {}
-        ovf_rows = np.nonzero(overflow)[0].tolist()
-        if ovf_rows:
-            with stage("device.ungapped_full"):
-                for s0 in range(0, len(ovf_rows), o.gap_batch):
-                    rr = ovf_rows[s0 : s0 + o.gap_batch]
-                    packed_f, out_f = self._rerun_overflowed(
-                        fwd, rev, out, on_device(rr))
-                    unpack_rows(rr, packed_f, full_res)
-                    if out_f is not None:
-                        moved.update((r, (out_f, i))
-                                     for i, r in enumerate(rr))
-        for r, fr in full_res.items():
-            needs_gap[r] = not fr["found"]
-
-        def by_source(rows):
-            """[(ungapped output, rows whose loci it holds, their rows in
-            it)]."""
-            groups = {}
-            for r in rows:
-                src, i = moved.get(r, (out, r))
-                g = groups.setdefault(id(src), (src, [], []))
-                g[1].append(r)
-                g[2].append(i)
-            return list(groups.values())
-
-        gap_rows = np.nonzero(needs_gap)[0].tolist()
-        if o.extend_algo == "sw":
-            sw_res = {}
-            if gap_rows:
-                with stage("host.sw_extend"):
-                    strands = {}
-                    for src, rows, at in by_source(gap_rows):
-                        host = self._loci_host(src, on_device(at))
-                        strands.update(
-                            (r, [(ps[i], ks[i]) for ps, ks in host])
+            def unpack_rows(rows, packed_rows, into):
+                fr = unpack_result(to_host(packed_rows), K)
+                into.update((r, {kk: v[i] for kk, v in fr.items()})
                             for i, r in enumerate(rows))
-                    self._sw_extend(gap_rows, strands, int(L), fwd, rev,
-                                    sw_res)
-            return res, needs_gap, sw_res, full_res
 
-        gap_res = {}
-        if gap_rows:
-            k = o.gap_k if o.gap_k is not None else max(int(L) // 10, 0)
+            # rows whose locate or compact verify was truncated: checked again
+            # in full (rare).  `moved` says where such a row's loci went:
+            # (ungapped output, row in it); every other row's are in `out`.
+            full_res, moved = {}, {}
+            ovf_rows = np.nonzero(overflow)[0].tolist()
+            count("rows.overflow", len(ovf_rows))   # 0 counts too
+            if ovf_rows:
+                with stage("device.ungapped_full"):
+                    for s0 in range(0, len(ovf_rows), o.gap_batch):
+                        rr = ovf_rows[s0 : s0 + o.gap_batch]
+                        packed_f, out_f = self._rerun_overflowed(
+                            fwd, rev, out, on_device(rr))
+                        unpack_rows(rr, packed_f, full_res)
+                        if out_f is not None:
+                            moved.update((r, (out_f, i))
+                                         for i, r in enumerate(rr))
+            for r, fr in full_res.items():
+                needs_gap[r] = not fr["found"]
 
-            def gapped(src, rows, at, u, size):
-                for s0 in range(0, len(rows), size):
-                    rr = on_device(rows[s0 : s0 + size])
-                    unpack_rows(rows[s0 : s0 + size], self._gapped(
-                        fwd[rr], rev[rr], src, on_device(at[s0 : s0 + size]),
-                        k, u), gap_res)
+            def by_source(rows):
+                """[(ungapped output, rows whose loci it holds, their rows in
+                it)]."""
+                groups = {}
+                for r in rows:
+                    src, i = moved.get(r, (out, r))
+                    g = groups.setdefault(id(src), (src, [], []))
+                    g[1].append(r)
+                    g[2].append(i)
+                return list(groups.values())
 
-            normal = [r for r in gap_rows if r not in full_res]
-            if normal:
-                with stage("device.gapped"):
-                    gapped(out, normal, normal, o.verify_width, o.gap_batch)
-            # rows with more gapped candidates than the compact width, and
-            # the overflow rows: check every candidate
-            wide = [r for r in gap_rows
-                    if r in full_res or gap_res[r]["n_extra"][0]]
-            if wide:
-                with stage("device.gapped_full"):
-                    for src, rows, at in by_source(wide):
-                        gapped(src, rows, at,
-                               o.cap() if src is out else o.full_cap(),
-                               FULL_WIDTH_BATCH)
-        return res, needs_gap, gap_res, full_res
+            gap_rows = np.nonzero(needs_gap)[0].tolist()
+            if o.extend_algo == "sw":
+                sw_res = {}
+                if gap_rows:
+                    with stage("host.sw_extend"):
+                        strands = {}
+                        for src, rows, at in by_source(gap_rows):
+                            host = self._loci_host(src, on_device(at))
+                            strands.update(
+                                (r, [(ps[i], ks[i]) for ps, ks in host])
+                                for i, r in enumerate(rows))
+                        self._sw_extend(gap_rows, strands, int(L), fwd, rev,
+                                        sw_res)
+                return res, needs_gap, sw_res, full_res
+
+            gap_res = {}
+            if gap_rows:
+                k = o.gap_k if o.gap_k is not None else max(int(L) // 10, 0)
+
+                def gapped(src, rows, at, u, size):
+                    for s0 in range(0, len(rows), size):
+                        rr = on_device(rows[s0 : s0 + size])
+                        count("rows.gapped", len(rr))
+                        unpack_rows(rows[s0 : s0 + size], self._gapped(
+                            fwd[rr], rev[rr], src,
+                            on_device(at[s0 : s0 + size]), k, u), gap_res)
+
+                normal = [r for r in gap_rows if r not in full_res]
+                if normal:
+                    with stage("device.gapped"):
+                        gapped(out, normal, normal, o.verify_width,
+                               o.gap_batch)
+                # rows with more gapped candidates than the compact width, and
+                # the overflow rows: check every candidate
+                wide = [r for r in gap_rows
+                        if r in full_res or gap_res[r]["n_extra"][0]]
+                if wide:
+                    with stage("device.gapped_full"):
+                        for src, rows, at in by_source(wide):
+                            gapped(src, rows, at,
+                                   o.cap() if src is out else o.full_cap(),
+                                   FULL_WIDTH_BATCH)
+            return res, needs_gap, gap_res, full_res
 
     def _device_sw_on(self, n_items: int) -> bool:
         """Whether the batched SW pre-filter runs for n_items candidates."""
@@ -432,11 +439,11 @@ class SEAligner:
         """Textbook SW scores of host-assembled uint8 windows and reads,
         scored on the aligner's device; one read-back."""
         with stage("device.sw_score"):
-            return sw_score(
+            return to_host(sw_score(
                 torch.from_numpy(refs).to(self.device),
                 torch.from_numpy(reads).to(self.device),
                 torch.from_numpy(lens).to(self.device),
-                snp_mode, SW_GAP_OPEN, SW_GAP_EXTEND).cpu().numpy()
+                snp_mode, SW_GAP_OPEN, SW_GAP_EXTEND))
 
     def _sw_extend(self, rows, strands, L, fwd, rev, sw_res):
         """Host SW extension over each gap-read's deduped loci
@@ -448,8 +455,8 @@ class SEAligner:
         o = self.opts
         mix = self.index.mixref
         sel = torch.as_tensor(rows, device=self.device)
-        codes_f_rows = fwd[sel].cpu().numpy()
-        codes_r_rows = rev[sel].cpu().numpy()
+        codes_f_rows = to_host(fwd[sel])
+        codes_r_rows = to_host(rev[sel])
 
         # phase A: per read, the deduped in-range loci in scan order
         per_read = []   # (ri, codes_f, codes_r, [(strand, pos), ...])
@@ -613,17 +620,18 @@ class SEAligner:
         """records: list of SeqRecord.  Returns SAM record strings
         (one per read, no newline; empty string for skipped reads).
         Mixed-length input is aligned one length group at a time and
-        re-scattered in input order."""
-        groups = group_by_length([r.seq for r in records])
-        if len(groups) <= 1:
-            return self._align_records_uniform(records)
-        out: List[str] = [""] * len(records)
-        for _L, idxs in groups:
-            for i, line in zip(
-                idxs, self._align_records_uniform([records[i] for i in idxs])
-            ):
-                out[i] = line
-        return out
+        re-scattered in input order.  Under SALT_TPU_TRACE each call is
+        one Chrome trace (utils/metrics.device_trace)."""
+        with device_trace("align_records", self.device):
+            groups = group_by_length([r.seq for r in records])
+            if len(groups) <= 1:
+                return self._align_records_uniform(records)
+            out: List[str] = [""] * len(records)
+            for _L, idxs in groups:
+                for i, line in zip(idxs, self._align_records_uniform(
+                        [records[i] for i in idxs])):
+                    out[i] = line
+            return out
 
     def _align_records_uniform(self, records) -> List[str]:
         o = self.opts
@@ -650,8 +658,7 @@ class SEAligner:
             if si + 1 < len(starts):
                 dispatch(starts[si + 1])  # device works while host finalizes
             start, nb, handle = inflight.pop(0)
-            with device_trace("se_batch", self.device):
-                res, needs_gap, gap_res, full_res = self._complete_batch(handle)
+            res, needs_gap, gap_res, full_res = self._complete_batch(handle)
             with stage("host.finalize"):
                 self._finalize_batch(
                     start, nb, names, codes, rcodes, quals, n_amb, res,
@@ -714,31 +721,33 @@ class SEAligner:
                                   int(hnv[m, s, jj])))
             for m, i in enumerate(plain_rows.tolist()):
                 pre_map[i] = (int(b1v[m]), xa_map.get(m, []))
-        for i in range(nb):
-            gi = start + i
-            if n_amb[gi] > SE_MAX_N_AMBIGUOUS:
-                out_records[gi] = ""  # reference emits a blank line
-                continue
-            if needs_gap[i] and i in gap_res:
-                r = gap_res[i]
-                if r.get("sw"):
-                    out_records[gi] = self._emit_sw(
-                        names[gi], codes[gi], rcodes[gi], quals[gi], r)
+        # the per-read loop: MAPQ, LV CIGARs, XA and each read's SAM line
+        with stage("host.emit"):
+            for i in range(nb):
+                gi = start + i
+                if n_amb[gi] > SE_MAX_N_AMBIGUOUS:
+                    out_records[gi] = ""  # reference emits a blank line
                     continue
-                is_gap = True
-            elif i in full_res:
-                r = full_res[i]
-                is_gap = False
-            else:
-                r = {k: v[i] for k, v in res.items()}
-                is_gap = False
-            out_records[gi] = self._finalize_read(
-                names[gi], codes[gi], rcodes[gi], quals[gi],
-                bool(r["found"]), int(r["pos"]), int(r["strand"]),
-                int(r["n_diff"]), is_gap, r["n_hits"],
-                r["first_hit_ndiff"], r["hits_pos"], r["hits_ndiff"],
-                md_tag=md_tags.get(i), pre_hits=pre_map.get(i),
-            )
+                if needs_gap[i] and i in gap_res:
+                    r = gap_res[i]
+                    if r.get("sw"):
+                        out_records[gi] = self._emit_sw(
+                            names[gi], codes[gi], rcodes[gi], quals[gi], r)
+                        continue
+                    is_gap = True
+                elif i in full_res:
+                    r = full_res[i]
+                    is_gap = False
+                else:
+                    r = {k: v[i] for k, v in res.items()}
+                    is_gap = False
+                out_records[gi] = self._finalize_read(
+                    names[gi], codes[gi], rcodes[gi], quals[gi],
+                    bool(r["found"]), int(r["pos"]), int(r["strand"]),
+                    int(r["n_diff"]), is_gap, r["n_hits"],
+                    r["first_hit_ndiff"], r["hits_pos"], r["hits_ndiff"],
+                    md_tag=md_tags.get(i), pre_hits=pre_map.get(i),
+                )
 
     def align_file(self, fastq_path: str, out_fh, cmd: str = "salt-tpu-torch"):
         print(sam_header(self.index, cmd, self.opts.rg_id), file=out_fh)

@@ -36,7 +36,7 @@ from ..io.fasta import read_records, trim_readno
 from ..io.sam import emit_pe, md_nm_tags_batch, sam_header
 from ..ops.lv import NT2BIT_NP, lv_cigar_host
 from ..ops.ssw import SCORE_MAT5, SCORE_MAT16, ssw_align
-from ..utils.metrics import stage
+from ..utils.metrics import count, device_trace, stage
 from .engine import (
     SEAligner,
     SEOptions,
@@ -273,10 +273,12 @@ class PEAligner:
         """Try the rescue windows in order; `scores` (if given) are the
         device textbook-SW scores aligned with reqs — a candidate below
         thres_score is skipped without touching the host SSW (sound:
-        SSW's score never exceeds the textbook score)."""
+        SSW's score never exceeds the textbook score).  Each window the
+        host SSW runs is counted as pe.rescue_windows."""
         for k, (anchor, other, start, end, strand) in enumerate(reqs):
             if scores is not None and scores[k] < SW_FILTER_SCORE:
                 continue
+            count("pe.rescue_windows")
             hit = (self._sw_snpaware(other, start, end, strand) if snp
                    else self._sw_plain(other, start, end, strand))
             if hit:
@@ -325,6 +327,12 @@ class PEAligner:
     # ---------------- entry points ----------------
 
     def align_pairs(self, recs1, recs2) -> List[str]:
+        """SAM lines of both ends of each pair.  Under SALT_TPU_TRACE each
+        call is one Chrome trace (utils/metrics.device_trace)."""
+        with device_trace("align_pairs", self.device):
+            return self._align_pairs(recs1, recs2)
+
+    def _align_pairs(self, recs1, recs2) -> List[str]:
         o = self.opts
         n = len(recs1)
         if len(recs2) != n:

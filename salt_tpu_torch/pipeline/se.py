@@ -25,6 +25,7 @@ from ..ops.lv import lv_distance_batch
 from ..ops.cuda_build import MAX_READ_LEN
 from ..ops.seed import seed_overlap
 from ..ops.uint import U32
+from ..utils.metrics import stage
 from ..ops.verify import (
     SEResult,
     StrandVerify,
@@ -111,26 +112,30 @@ def se_ungapped(
     chunk: int = None,      # locate column-block size (ops/locate.py)
 ) -> UngappedOut:
     """Seed + locate + sort, compact + word-packed mismatch counts, then
-    threshold replay, with both strands in one (2B, ...) batch."""
+    threshold replay, with both strands in one (2B, ...) batch; spans
+    device.seed, device.locate and device.verify."""
     B, L = seq_f.shape
     if L > MAX_READ_LEN:
         raise ValueError(f"reads longer than {MAX_READ_LEN}bp unsupported")
     seq2 = torch.cat([seq_f, seq_r], 0).long()
-    c_seeds, r_seeds = seed_overlap(
-        dix.ri_c, dix.ri_r, dix.lkt, seq2, dix.l_seed, l_overlap, max_seed,
-        r_lkt_sp=dix.r_lkt_sp, r_lkt_ep=dix.r_lkt_ep,
-    )
-    lo = locate(c_seeds, r_seeds, dix.sa_cat, dix.c_sa_len, L, dix.l_pac,
-                max_locate, cap, pe_mode=pe_mode, sampled=sampled,
-                ri_c=dix.ri_c, ri_r=dix.ri_r, chunk=chunk)
-    lc = sort_loci(lo.loci)
-    pos, keep, ovf = compact_loci(lc, checked_mask(lc, dix.l_pac), u)
-    v = mismatch_counts_packed(dix.mixref_words, pos, keep, seq2,
-                               NOGAP_MAX_DIFF + 1)
-    v0, v1 = _halves(v, B)
-    ovf = ovf | lo.overflow
-    res = replay_and_select(v0, v1, NOGAP_MAX_DIFF, k_hits)
-    loci0, loci1 = _halves(lc, B)
+    with stage("device.seed"):
+        c_seeds, r_seeds = seed_overlap(
+            dix.ri_c, dix.ri_r, dix.lkt, seq2, dix.l_seed, l_overlap,
+            max_seed, r_lkt_sp=dix.r_lkt_sp, r_lkt_ep=dix.r_lkt_ep,
+        )
+    with stage("device.locate"):
+        lo = locate(c_seeds, r_seeds, dix.sa_cat, dix.c_sa_len, L, dix.l_pac,
+                    max_locate, cap, pe_mode=pe_mode, sampled=sampled,
+                    ri_c=dix.ri_c, ri_r=dix.ri_r, chunk=chunk)
+    with stage("device.verify"):
+        lc = sort_loci(lo.loci)
+        pos, keep, ovf = compact_loci(lc, checked_mask(lc, dix.l_pac), u)
+        v = mismatch_counts_packed(dix.mixref_words, pos, keep, seq2,
+                                   NOGAP_MAX_DIFF + 1)
+        v0, v1 = _halves(v, B)
+        ovf = ovf | lo.overflow
+        res = replay_and_select(v0, v1, NOGAP_MAX_DIFF, k_hits)
+        loci0, loci1 = _halves(lc, B)
     return UngappedOut(res=res, needs_gap=~res.found,
                        overflow=ovf[:B] | ovf[B:], loci0=loci0, loci1=loci1)
 
@@ -146,12 +151,14 @@ def se_ungapped_full(
     """Full-width verify for reads whose unique-candidate count exceeded
     the compact width.  Reuses located loci."""
     B = seq_f.shape[0]
-    seq2 = torch.cat([seq_f, seq_r], 0).long()
-    lc = _cat_loci(loci0, loci1)
-    pos, keep, _ = compact_loci(lc, checked_mask(lc, dix.l_pac), lc.pos.shape[-1])
-    v = mismatch_counts_packed(dix.mixref_words, pos, keep, seq2,
-                               NOGAP_MAX_DIFF + 1)
-    return replay_and_select(*_halves(v, B), NOGAP_MAX_DIFF, k_hits)
+    with stage("device.verify"):
+        seq2 = torch.cat([seq_f, seq_r], 0).long()
+        lc = _cat_loci(loci0, loci1)
+        pos, keep, _ = compact_loci(lc, checked_mask(lc, dix.l_pac),
+                                    lc.pos.shape[-1])
+        v = mismatch_counts_packed(dix.mixref_words, pos, keep, seq2,
+                                   NOGAP_MAX_DIFF + 1)
+        return replay_and_select(*_halves(v, B), NOGAP_MAX_DIFF, k_hits)
 
 
 def _gapped_checked(loci: Loci, L: int, l_mref: int) -> torch.Tensor:

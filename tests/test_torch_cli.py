@@ -337,9 +337,15 @@ def test_device_trace_writes_a_trace_only_when_asked(work, plain, tmp_path,
     monkeypatch.setenv("SALT_TPU_TRACE", str(tmp_path / "traces"))
     rc, got, _ = _run(cli.main, ALN + [work["prefix"], work["reads"]])
     assert rc == 0 and _body(got) == _body(plain)
-    made = sorted(os.listdir(tmp_path / "traces" / "se_batch"))
-    assert len(made) == 2                       # 80 reads in batches of 64
-    for name in made:
-        with open(tmp_path / "traces" / "se_batch" / name) as fh:
-            events = json.load(fh)["traceEvents"]
-        assert any(e.get("cat") == "cpu_op" for e in events)
+    made = sorted(os.listdir(tmp_path / "traces" / "align_records"))
+    assert len(made) == 1                       # one align_records call
+    with open(tmp_path / "traces" / "align_records" / made[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    # both batches (80 reads in batches of 64), dispatch to finalize, with
+    # the program's spans inside
+    spans = [e["name"] for e in events if e.get("cat") == "cpu_op"]
+    for name in ("device.dispatch", "device.seed", "device.locate",
+                 "device.verify", "device.complete", "host.finalize",
+                 "host.emit"):
+        assert spans.count(name) == 2, name
