@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the two kernel sources (csrc/lv.cu with both forms
-   of K1, csrc/sw.cu) and the native host library, side by side.
+   versions, and builds the three kernel sources (csrc/lv.cu with both
+   forms of K1, csrc/sw.cu, csrc/seed.cu) and the native host library,
+   side by side.
 2. K1 kernel phase: the CUDA LV kernel against its plain PyTorch version
    on the card, exact equality, over k in {0, 3, 7, 8, 10, 15, 16, 30}
    (every group size of the kernel and the boundaries between them), L in
@@ -40,10 +41,18 @@
    to_device_index (planes, packed words and sampled tables built on the
    card) and by host_route_index (numpy on the host, then copied): every
    tensor bit-equal, both routes' seconds and peak device memory.  In
-   phases 5 and 6 the SE reads also go through an aligner over the
+   phases 6 and 7 the SE reads also go through an aligner over the
    host route's index and the aligner over the card-built one, in turns,
    each mode.
-5. Slice phases on one chr21-scale SNP-aware index (45M bases in 8
+5. K3 phase: the CUDA seeding kernel against seed_overlap_plain on the
+   card, every output bit for bit, on the slice index (l_seed 19, 45M
+   bases without repeats) and on a 4,000,000-base repeat-rich one
+   (sim/genome_gen.py, l_seed 21, 1% N runs), 8,192 rows of both strands
+   with N bases, each variant (R jump tables, R without them, seed_only_ref)
+   at l_overlap 1 and 21 and max_seed 50 and 2.  Times K3 (CUDA-graph
+   replay) and the plain version at 8,192 rows x 4 and x 80 seed starts.
+   K3's launches are counted in every path's launch line.
+6. Slice phases on one chr21-scale SNP-aware index (45M bases in 8
    contigs, 1 SNP per 300 bp) built in process, the 4 sub-indexes of the
    sharded aligner beside it: SE with Landau-Vishkin extension, SE with
    Smith-Waterman extension (-X 1), and paired-end with mate rescue.  Each
@@ -51,17 +60,17 @@
    just before, checks that its kernels ran, the mapped and correct
    shares, and that a prefix of the reads gives byte-identical SAM on the
    CPU (and, for the SW paths, on the card with the pre-filter off).
-6. Sampled suffix-array mode on the same index (sa_intv = 8): the LF-walk
+7. Sampled suffix-array mode on the same index (sa_intv = 8): the LF-walk
    resolver on 2 x 65,536 random ranks against the host tables, with the
    fused and with standalone rank planes; SE with Landau-Vishkin extension
    on the same reads, SAM byte-identical to full mode; one paired-end
    chunk likewise; the device bytes of the locate tables in both modes.
-7. Polish on the card over the SE and the PE SAM of phase 5 (Landau-Vishkin
+8. Polish on the card over the SE and the PE SAM of phase 6 (Landau-Vishkin
    scoring through K1's byte form), byte-identical to the same call on the
    CPU; SSW scoring (-s) on 512 records; then K1's byte form timed at the
    largest batch that path sent.
 
-8. The index sharded by reference bin (4 shards, all resident on the one
+9. The index sharded by reference bin (4 shards, all resident on the one
    card): SE with Landau-Vishkin extension on the SE phase's reads (SAM
    byte-identical to the monolithic aligner's, K1 launched in every timed
    batch, the two aligners' rates in turns, device bytes of the four
@@ -70,20 +79,20 @@
    shape K1 and K2 were sent is held against the plain version; the
    ungapped sharded step (sharded_se_step) on its default devices, equal
    to the monolithic ungapped step.
-9. fast_cap=64 on one batch (SAM equal to one locate tier, the rows
+10. fast_cap=64 on one batch (SAM equal to one locate tier, the rows
    located again, both times in turns); the data-parallel step over
    make_mesh() and over the card named twice, equal to the unsplit step.
-10. The command line on a 3,000,000-base genome in a temporary directory:
+11. The command line on a 3,000,000-base genome in a temporary directory:
    idx --shards 4, aln, aln --shards 4, aln --part-dir as processes 0 and
    1 of 2 and --merge, all the same SAM; SALT_TPU_TRACE gives a Chrome
    trace that holds CUDA kernel events.
 
-11. Accuracy, by tools/run_accuracy.py's steps (the reference's
+12. Accuracy, by tools/run_accuracy.py's steps (the reference's
    run_test.sh protocol: wgsim read pairs, the simulated substitutions
    fed back as known SNPs, alneval against the truth in the read names).
    Both protocols' simulation and index build start in processes of their
    own at the beginning of the run (about 4 minutes of host work each),
-   beside phases 1-10.  Protocol A: a 45,000,000-base uniform genome,
+   beside phases 1-11.  Protocol A: a 45,000,000-base uniform genome,
    20,000 error-free pairs, SE and PE on the card with the gate max_err =
    0 (any wrong read fails), and SE again in sampled mode with SAM equal
    to full mode's.  Protocol B, README's config 3b: a 45,000,000-base
@@ -91,23 +100,23 @@
    PE, report-only; K1 must launch, K2's launches in PE rescue are
    printed, and the first 512 reads and 512 pairs give the same SAM on
    the CPU.
-12. The stage profile (tools/profile_se.py) at 8,192 reads over protocol
+13. The stage profile (tools/profile_se.py) at 8,192 reads over protocol
    A's index: seed, seed+locate, seed+locate+verify, the ungapped step,
    the gapped step on 64 rows and the sampled ungapped step, each with
    its first call, steady host time and a torch.profiler trace (device
    busy time, kernels, launches, copies, synchronizations), then the
    functions under the host finalize by cumulative time.
 
-13. tools/bench.py (salt_tpu's bench.py) at its own sizes: SE (24,576
+14. tools/bench.py (salt_tpu's bench.py) at its own sizes: SE (24,576
    reads, a 5% SNP overlay) and PE (3 x 8,192 pairs) on a 96,000-base
    stand-in for the bundled test genome in 4 contigs, and the scale run
    on a 45,000,000-base repeat-rich genome whose index is built in a
-   process of its own from the beginning of the run, beside phases 1-12.
+   process of its own from the beginning of the run, beside phases 1-13.
    Each run's rate, stage seconds and launches; bench's JSON line printed
    with the prefix "[bench] "; the busy share of one scale batch; the
    first 512 reads (pairs) of each run give the same SAM on the CPU.
 
-14. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
+15. Past 2^31: a synthetic BWT of 2^31 + 2^26 symbols, 98.5% code 0, so
    that code 0's exclusive count passes 2^31 (and the C-array of every
    later code), its planes built on the card by ops/rank.py:rank_index_on
    and on the host by build_rank_index (peak of its numpy arrays
@@ -161,6 +170,9 @@ from salt_tpu_torch.ops.rank import (
     rank_excl,
     rank_index_on,
 )
+from salt_tpu_torch.ops.seed import seed_overlap_plain
+from salt_tpu_torch.ops.seed_cuda import SEED as K3
+from salt_tpu_torch.ops.seed_cuda import seed_overlap_cuda
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
 from salt_tpu_torch.ops.sw_cuda import SW, sw_score_cuda, sw_score_launch
 from salt_tpu_torch.parallel.mesh import make_mesh, sharded_full_step
@@ -188,6 +200,7 @@ from salt_tpu_torch.pipeline.engine import (
 )
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
 from salt_tpu_torch.polish import polish as polish_mod
+from salt_tpu_torch.sim.genome_gen import sample_snps, synthesize_genome
 from salt_tpu_torch.tools import bench, profile_se, run_accuracy
 from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.utils.native import load_native
@@ -225,7 +238,8 @@ LV_KS = (0, 3, 7, 8, 10, 15, 16, 30)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 int32 lanes, one op a clock
 PROFILE_TRIES = 2
-KERNELS = {"lv_distance": LV, "lv_distance_bytes": LV_BYTES, "sw_score": SW}
+KERNELS = {"lv_distance": LV, "lv_distance_bytes": LV_BYTES, "sw_score": SW,
+           "seed_overlap": K3}
 # K1's byte form: polish's match codes (bases, N, 3 - N of a reverse
 # strand read, any stray byte) and its call (k = 13, no window padding)
 POLISH_CODES = np.array([1, 2, 4, 8, 16, 32, 64], np.uint8)
@@ -1692,8 +1706,8 @@ def cli_phase():
 
 
 def build_all():
-    """Builds both kernel sources and the native host library side by side
-    (one compiler process each) and prints what ptxas reports; K1's byte
+    """Builds the three kernel sources and the native host library side by
+    side (one compiler process each) and prints what ptxas reports; K1's byte
     form is an entry point of lv.cu's library."""
     t0 = time.perf_counter()
 
@@ -1702,15 +1716,15 @@ def build_all():
         build()
         return name, time.perf_counter() - t
 
-    jobs = [("lv.cu", LV.build), ("sw.cu", SW.build),
+    jobs = [("lv.cu", LV.build), ("sw.cu", SW.build), ("seed.cu", K3.build),
             ("host library (g++)", load_native)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for name, dt in pool.map(lambda j: one(*j), jobs):
             print(f"[build] {name}: {dt:.2f} s", flush=True)
-    print(f"[build] all three side by side: {time.perf_counter() - t0:.2f} s",
+    print(f"[build] all four side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
     LV_BYTES.build()
-    for kern in (LV, SW):
+    for kern in (LV, SW, K3):
         report_ptxas(kern)
 
 
@@ -1725,7 +1739,7 @@ def report_ptxas(kern):
     for line in kern.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            base = re.search(r"\d+(sw_\w+?_kernel|lv_\w+?_kernel)I", m.group(1))
+            base = re.search(r"\d+((?:sw|lv|seed)_\w+?_kernel)", m.group(1))
             args = re.findall(r"L[bi](\d+)E", m.group(1))
             name = f"{base.group(1) if base else m.group(1)}<{', '.join(args)}>"
         elif "bytes stack frame" in line:
@@ -1864,6 +1878,135 @@ def device_build_phase(idx, dev):
                 raise AssertionError("zero-SNP sampled tables lack the dummy")
             del got, want, dix
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- K3 phase
+
+SEED_VARIANTS = ("r_lkt", "lf_only", "seed_only_ref")
+SEED_OPTS = ((1, 50), (1, 2), (21, 50), (21, 2))   # (l_overlap, max_seed)
+SEED_ROWS = 8192        # one 4,096-read batch of the benchmark, both strands
+REPEAT_LEN = 4_000_000  # the repeat-rich genome of the K3 check
+SEED_FIELDS = ("sp", "ep", "offset", "valid")
+
+
+def repeat_index(rng):
+    """A repeat-rich genome (sim/genome_gen.py, 1% N runs) with a SNP
+    every SNP_EVERY bases, indexed at l_seed = 21 as the benchmark's
+    chr21 is, and SEED_ROWS // 2 reads' codes drawn from it uniformly
+    (about half of them in repeats)."""
+    ((name, codes),) = synthesize_genome(REPEAT_LEN, 1,
+                                         seed=int(rng.integers(1 << 30)))
+    gpos, _alt, stype = sample_snps(codes, SNP_EVERY, rng)
+    lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    t0 = time.perf_counter()
+    idx = build_index_from_data(
+        [(name, "repeat", lut[codes])],
+        [SnpBlock(name, gpos.astype(np.uint32), stype)], l_seed=21)
+    print(f"[seed] repeat-rich genome of {REPEAT_LEN} bases, {len(gpos)} SNPs: "
+          f"host build {time.perf_counter() - t0:.1f} s", flush=True)
+    starts = rng.integers(0, REPEAT_LEN - READ_LEN, SEED_ROWS // 2)
+    return idx, codes[starts[:, None] + np.arange(READ_LEN)]
+
+
+def seed_rows(fwd, rng):
+    """Both strands of reads (uint8 codes) stacked as the ungapped step
+    stacks them, int64, with N at 0.2% of the bases and three N inside
+    the 12-mer tails of every 97th row's first seeds."""
+    codes = np.concatenate([fwd, revcomp(fwd)])
+    codes[rng.random(codes.shape) < 0.002] = 4
+    codes[::97, 12:15] = 4
+    return torch.from_numpy(codes.astype(np.int64))
+
+
+def seed_calls(dix, seq, variant, l_overlap, max_seed):
+    """(kernel, plain version) of one seeding call."""
+    kw = {"seed_only_ref": variant == "seed_only_ref"}
+    if variant == "r_lkt":
+        kw.update(r_lkt_sp=dix.r_lkt_sp, r_lkt_ep=dix.r_lkt_ep)
+    args = (dix.ri_c, dix.ri_r, dix.lkt, seq, dix.l_seed, l_overlap, max_seed)
+    return (lambda: seed_overlap_cuda(*args, **kw),
+            lambda: seed_overlap_plain(*args, **kw))
+
+
+def check_seed_case(tag, dix, seq, variant, l_overlap, max_seed):
+    kern, plain = seed_calls(dix, seq, variant, l_overlap, max_seed)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    for fam, g, w in zip("CR", got, want):
+        for name, a in zip(SEED_FIELDS, g):
+            b = getattr(w, name)
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                bad = torch.nonzero(a != b)[:3].tolist()
+                raise AssertionError(
+                    f"K3 != plain: {tag} {variant} l_overlap={l_overlap} "
+                    f"max_seed={max_seed} {fam}.{name} ({a.dtype} {tuple(a.shape)}"
+                    f" vs {b.dtype} {tuple(b.shape)}) at {bad}: kernel "
+                    f"{[a[tuple(i)].item() for i in bad]}, plain "
+                    f"{[b[tuple(i)].item() for i in bad]}")
+    c, r = want
+    p = torch.arange(c.offset.shape[1], device=seq.device) * l_overlap
+    ext = [int(((f.offset < p) & f.valid).sum()) for f in want]
+    print(f"[seed] {tag} {variant:13s} l_overlap={l_overlap:2d} "
+          f"max_seed={max_seed:2d} ({seq.shape[0]} x {c.offset.shape[1]}): equal; "
+          f"valid C {c.valid.float().mean().item():.4f}, R "
+          f"{r.valid.float().mean().item():.4f}; extended {ext[0]} C and "
+          f"{ext[1]} R seeds by {int(extension_rounds(want, p))} bases",
+          flush=True)
+    return want
+
+
+def extension_rounds(want, p):
+    """Bases the extension added over both families' valid seeds."""
+    return sum(((p - f.offset) * f.valid).sum() for f in want)
+
+
+def seed_kernel_phase(dev, idx, recs, rng):
+    """K3 against seed_overlap_plain on the card, bit for bit: on the
+    slice index (l_seed 19, no repeats) and on a repeat-rich one (l_seed
+    21), reads with N, every variant at l_overlap 1 and 21 and max_seed
+    50 and 2.  Times K3 and the plain version at 8,192 rows x 4 and x 80
+    starts on the repeat-rich index.  Returns {starts: times}."""
+    rep_idx, rep_reads = repeat_index(rng)
+    slice_fwd = encode_reads([r.seq for r in recs[: SEED_ROWS // 2]])
+    times = {}
+    for tag, ix, fwd in (("slice", idx, slice_fwd),
+                         ("repeat", rep_idx, rep_reads)):
+        dix = to_device_index(ix, dev)
+        seq = seed_rows(fwd, rng).to(dev)
+        for variant in SEED_VARIANTS:
+            for l_overlap, max_seed in SEED_OPTS:
+                want = check_seed_case(tag, dix, seq, variant, l_overlap,
+                                       max_seed)
+                if tag == "repeat" and variant == "r_lkt" and max_seed == 50:
+                    S = want[0].sp.shape[1]
+                    times[S] = time_seed(dix, seq, l_overlap, want)
+        del dix, seq
+        torch.cuda.empty_cache()
+    ops_per_s = int32_ops_per_s()
+    for t in times.values():
+        t.update(bound(t["bytes"], t["operations"], ops_per_s))
+    return times
+
+
+def time_seed(dix, seq, l_overlap, want):
+    """K3 and its plain version in turns, as the aligner calls them (R jump
+    tables, max_seed 50).  Bytes, at most what these inputs need: the
+    codes, the outputs, 16 bytes a seed for the four 12-mer table words,
+    and two 8-byte rank rows for each extension round and each LF step of
+    a family (as if no lane died); operations at about 30 a row."""
+    kern, plain = seed_calls(dix, seq, "r_lkt", l_overlap, 50)
+    B, S = want[0].sp.shape
+    rounds = int(extension_rounds(
+        want, torch.arange(S, device=seq.device) * l_overlap))
+    n_lf = dix.l_seed - 12
+    rows = 2 * (rounds + 2 * n_lf * B * S) + 2 * B * S
+    t = time_turns(kern, plain, kern_reps=50, plain_reps=3)
+    t.update(shape={"rows": B, "L": seq.shape[1], "starts": S,
+                    "l_overlap": l_overlap, "max_seed": 50,
+                    "extension_rounds": rounds},
+             bytes=seq.numel() * 8 + B * S * 50 + rows * 8,
+             operations=30 * rows)
+    return t
 
 
 # ---------------------------------------------------------------- accuracy and profile
@@ -2262,6 +2405,10 @@ def main() -> int:
     device_build_phase(idx, dev)
     recs, truth = simulate_reads(hap, bounds, BATCH * (1 + N_TIMED), READ_LEN,
                                  rng)
+    seed_times = seed_kernel_phase(dev, idx, recs,
+                                   np.random.default_rng(SEED + 9))
+    for S, t in seed_times.items():
+        print_times(f"seed {SEED_ROWS} rows x {S} starts", t)
 
     launches = {name: {} for name in KERNELS}
     note_lv_batches()
@@ -2271,7 +2418,7 @@ def main() -> int:
             launches[name][path] = c
 
     counts, al, se_opts, se_warm, se_out = se_phase(
-        "se", idx, recs, truth, dev, ("lv_distance",), N_TIMED)
+        "se", idx, recs, truth, dev, ("lv_distance", "seed_overlap"), N_TIMED)
     note("se_lv", counts)
     busy_share(al, recs[BATCH : 2 * BATCH])
     route_turns(idx, al, se_opts, recs, dev)
@@ -2340,6 +2487,10 @@ def main() -> int:
         kernel_record("sw_score", SW, "salt_tpu/ops/sw_pallas.py:38,101,278",
                       launches["sw_score"], sw_err, sw_times["x1"],
                       [sw_times["pe"], sw_long] + sw_sent),
+        # salt_tpu seeds in XLA, not in a TPU kernel of its own
+        kernel_record("seed_overlap", K3, "none: XLA, salt_tpu/ops/seed.py",
+                      launches["seed_overlap"], 0, seed_times[4],
+                      [seed_times[80]]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,13 @@ For every seed start p (stride `l_overlap`) of every read, in parallel:
   With the exact R 12-mer interval tables it jumps 12 steps as well.
 
 Both families step over the same bases, so each LF step and each
-extension round serves both.  The extension round count is data
-dependent: the loop reads back `any(active)` once per round (a host.sync).
+extension round serves both.
+
+`seed_overlap` runs the CUDA kernel K3 (ops/seed_cuda.py, csrc/seed.cu)
+on CUDA tensors: one launch a call, no read-back.  On CPU tensors it runs
+the plain PyTorch version, `seed_overlap_plain`, whose extension loop
+reads back `any(active)` once per round (a host.sync) because its round
+count is data dependent.  Either counts its seed starts as k3.seeds.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.metrics import to_host
+from ..utils.metrics import count, to_host
+from . import seed_cuda
 from .rank import RankIndex, lf_step, rank_excl
 from .uint import as_i32, take, take_u32, ugt
 
@@ -93,10 +99,35 @@ def seed_overlap(
     r_lkt_sp: torch.Tensor = None,
     r_lkt_ep: torch.Tensor = None,
 ):
-    """Returns (c_seeds, r_seeds), each a Seeds with shape (B, S)."""
+    """Returns (c_seeds, r_seeds), each a Seeds with shape (B, S): the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    args = (ri_c, ri_r, lkt, seq, l_seed, l_overlap, max_seed, l_lkt,
+            seed_only_ref, r_lkt_sp, r_lkt_ep)
+    if seq.is_cuda:
+        c, r = seed_cuda.seed_overlap_cuda(*args)
+        return Seeds(*c), Seeds(*r)
+    return seed_overlap_plain(*args)
+
+
+def seed_overlap_plain(
+    ri_c: RankIndex,
+    ri_r: RankIndex,
+    lkt: torch.Tensor,
+    seq: torch.Tensor,      # (B, L) int64 codes 0..4
+    l_seed: int,
+    l_overlap: int,
+    max_seed: int,
+    l_lkt: int = 12,
+    seed_only_ref: bool = False,
+    r_lkt_sp: torch.Tensor = None,
+    r_lkt_ep: torch.Tensor = None,
+):
+    """Plain PyTorch version of the kernel: (c_seeds, r_seeds), each a
+    Seeds with shape (B, S)."""
     B, L = seq.shape
     win = seq.unfold(1, l_seed, l_overlap)                  # (B, S, l_seed)
     S = win.shape[1]
+    count("k3.seeds", B * S)
     p = torch.arange(0, S * l_overlap, l_overlap,
                      device=seq.device).expand(B, S)         # seed starts
 
