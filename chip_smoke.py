@@ -156,7 +156,6 @@ from salt_tpu_torch.index.build import build_index_from_data
 from salt_tpu_torch.index.store import load_index, save_index
 from salt_tpu_torch.io.fasta import SeqRecord, read_records
 from salt_tpu_torch.io.snp import SnpBlock
-from salt_tpu_torch.ops.locate import resolve_sampled
 from salt_tpu_torch.ops.lv import lv_distance_plain, window_nibbles
 from salt_tpu_torch.ops.lv_cuda import (
     LV,
@@ -201,7 +200,7 @@ from salt_tpu_torch.pipeline.engine import (
 from salt_tpu_torch.pipeline.pe_engine import PEAligner, PEOptions
 from salt_tpu_torch.polish import polish as polish_mod
 from salt_tpu_torch.sim.genome_gen import sample_snps, synthesize_genome
-from salt_tpu_torch.tools import bench, profile_se, run_accuracy
+from salt_tpu_torch.tools import bench, profile_se, run_accuracy, sa_walk_check
 from salt_tpu_torch.utils.metrics import metrics, metrics_reset
 from salt_tpu_torch.utils.native import load_native
 
@@ -1164,40 +1163,17 @@ def busy_share(al, recs, tag="se"):
 
 
 def resolver_check(idx, al, dev):
-    """resolve_sampled on N_RESOLVE random ranks a family (rank 0 left
-    out: no seed interval reaches it) against the host tables, with the
-    aligner's fused rank planes and with standalone ones."""
-    rng = np.random.default_rng(SEED + 5)
-    rc = rng.integers(1, len(idx.csa), N_RESOLVE)
-    rr = rng.integers(1, len(idx.r_coord), N_RESOLVE)
-    n_sharp = al.sampled.sharp_hi - al.sampled.sharp_lo
-    rr[:64] = al.sampled.sharp_lo + rng.integers(0, n_sharp, 64)   # on a '#'
-    want = torch.from_numpy(np.concatenate([idx.csa[rc], idx.r_coord[rr]])
-                            .astype(np.int64)).to(dev)
-    rank = torch.from_numpy(np.concatenate([rc, rr])).to(dev)
-    is_r = torch.arange(2 * N_RESOLVE, device=dev) >= N_RESOLVE
-    active = torch.ones(2 * N_RESOLVE, dtype=torch.bool, device=dev)
-    solo = (rank_index_on(dev, idx.cbwt, np.append(idx.c_l2, 0)),
-            rank_index_on(dev, idx.rbwt, np.append(idx.r_cumfreq, 0)))
-    for name, (ri_c, ri_r) in (("fused", (al.dix.ri_c, al.dix.ri_r)),
-                               ("standalone", solo)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = resolve_sampled(al.sampled, ri_c, ri_r, rank, is_r, active)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n_bad = int((got != want).sum())
-        print(f"[sampled] resolve_sampled, {name} planes: {n_bad} of "
-              f"{2 * N_RESOLVE} ranks differ from csa / r_coord "
-              f"({dt * 1e3:.2f} ms)", flush=True)
-        if n_bad:
-            bad = torch.nonzero(got != want)[:5, 0].tolist()
-            raise AssertionError(
-                f"resolve_sampled ({name}) at lanes {bad}: ranks "
-                f"{rank[bad].tolist()}, got {got[bad].tolist()}, want "
-                f"{want[bad].tolist()}")
-    if int((want[N_RESOLVE : N_RESOLVE + 64] != 0xFFFFFFFF).sum()):
-        raise AssertionError("the ranks planted on a '#' are not on one")
+    """resolve_sampled on N_RESOLVE random ranks a family (rank 0 of each
+    among them, 64 R ranks on a '#'), over the aligner's own sampled
+    tables with its fused rank planes and with standalone ones, against
+    salt's own walk (reference/sa_walk.py), itself held to csa / r_coord
+    (tools/sa_walk_check.py)."""
+    out = sa_walk_check.check(idx, dev, N_RESOLVE, (al.dix, al.sampled))
+    print(f"[sampled] resolve_sampled against salt's walk: {out}",
+          flush=True)
+    bad = {k: v for k, v in out.items() if k.endswith("_differ") and v}
+    if bad or out["on_sharp"] < sa_walk_check.N_SHARP:
+        raise AssertionError(f"sampled locate differs: {out}")
 
 
 def rate_turns(tag, first, second, recs):

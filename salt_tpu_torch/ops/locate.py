@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import MAX_LOC_POS
-from ..utils.metrics import to_host
+from ..utils.metrics import count, stage, to_host
 
 from .rank import planes_fused, rank_excl
 from .seed import Seeds
@@ -64,8 +64,9 @@ def resolve_sampled(sampled, ri_c, ri_r, rank: torch.Tensor,
     """Rank -> coordinate (uint32 in int64) by bounded LF walks against
     the sampled tables (pipeline/device_index.SampledSA): both families
     walk to a flagged stop rank within intv - 1 steps.  Reproduces the
-    full-table values, the csa[0] quirk and UINT32_MAX at '#' positions
-    included.
+    full-table values on active lanes, UINT32_MAX at rank 0 (csa[0]'s
+    quirk, and r_coord's sentinel rank) and at '#' positions included;
+    reference/sa_walk.py walks salt's own structures to the same values.
 
     Ranks are uint32 carried in int64 (possibly as wrapped int32): every
     shift, mask, minimum and bound on them goes through `& U32`, so C
@@ -101,6 +102,9 @@ def resolve_sampled(sampled, ri_c, ri_r, rank: torch.Tensor,
 
     fused = planes_fused(ri_c, ri_r)
     k = umin(rank, bound)
+    # rank 0, the sentinel's suffix, holds UINT32_MAX in both full tables
+    # whatever a walk from it would read; no seed interval reaches it
+    at_sentinel = active & (k == 0)
     done = ~active | is_done(k)
     steps = torch.zeros_like(k)
     # the trip bound ends the walk of degenerate lanes too (a zero-SNP
@@ -137,7 +141,7 @@ def resolve_sampled(sampled, ri_c, ri_r, rank: torch.Tensor,
     val = take_u32(s.samples_cat, slot)
     on_sharp = (k >= s.sharp_lo) & (k < s.sharp_hi)
     # a candidate on a '#': the full table holds UINT32_MAX there
-    return torch.where(is_r & (steps == 0) & on_sharp, U32,
+    return torch.where(at_sentinel | (is_r & (steps == 0) & on_sharp), U32,
                        (val + steps) & U32)
 
 
@@ -222,8 +226,12 @@ def locate(
         rank = as_i32(at(fused) + slots * at(skip))
         slot_is_r = at(is_r)
         if sampled is not None:
-            sa_val = resolve_sampled(sampled, ri_c, ri_r, rank, slot_is_r,
-                                     in_range)
+            # rows x columns known on the host: no read-back, no launch
+            count("sa_walk.blocks")
+            count("sa_walk.slots", B * n)
+            with stage("device.sa_walk"):
+                sa_val = resolve_sampled(sampled, ri_c, ri_r, rank,
+                                         slot_is_r, in_range)
         else:
             sa_val = take_u32(sa_cat, sa_gather_index(
                 rank, slot_is_r, c_sa_len, sa_cat.shape[0]))
