@@ -45,13 +45,15 @@ _OFFSETS_CACHE: dict = {}
 
 
 def contig_offsets(index) -> np.ndarray:
-    """Per-index cached contig offset array (avoids a per-record alloc)."""
+    """Per-index cached contig offset array (avoids a per-record alloc).
+    An entry holds the contig list it was made from: a later index that
+    takes a freed index's id has another list, and gets its own entry."""
     key = id(index)
-    arr = _OFFSETS_CACHE.get(key)
-    if arr is None:
-        arr = np.array([c.offset for c in index.contigs])
-        _OFFSETS_CACHE[key] = arr
-    return arr
+    entry = _OFFSETS_CACHE.get(key)
+    if entry is None or entry[0] is not index.contigs:
+        entry = (index.contigs, np.array([c.offset for c in index.contigs]))
+        _OFFSETS_CACHE[key] = entry
+    return entry[1]
 
 
 def coor_pac2real(offsets: np.ndarray, n_seqs: int, pos: int) -> int:

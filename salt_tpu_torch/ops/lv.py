@@ -22,10 +22,14 @@ patterns (polish).
 Host side: `lv_cigar_host` replicates computeEditDistanceWithCigar
 (LandauVishkin.c:176-470), including its d order (0, -1, 1, -2, 2 ...)
 and backtrace.  The host helpers are copies of salt_tpu's, whose module
-imports jax.
+imports jax.  `lv_cigar_batch` runs the same traceback, and the MD/NM/XV
+tag over its CIGAR, for a batch of rows in one call to the native host
+library (csrc/lv_host.cpp); `lv_cigar_host` is its plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -304,3 +308,79 @@ def lv_cigar_host(text: np.ndarray, pattern: np.ndarray, k: int,
                 return e, "".join(out)
             d = -(d + 1) if d >= 0 else -d
     return -1, ""
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_CIGAR_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+               _I]
+
+
+def _cigar_fn():
+    """salt_lv_cigar_batch of the host library, its ctypes types set."""
+    from ..utils.native import load_native
+
+    fn = load_native().salt_lv_cigar_batch
+    if fn.argtypes is None:
+        fn.argtypes = _CIGAR_ARGS
+        fn.restype = _I
+    return fn
+
+
+def lv_cigar_batch(mixref: np.ndarray, pac: np.ndarray, pos, reads, k,
+                   want_tag):
+    """For each row i, lv_cigar_host(mixref[pos[i] : pos[i] + L +
+    GAP_WINDOW_PAD], one-hot reads[i], k[i]) and, where want_tag[i], the
+    MD/NM/XV tag io/sam.md_nm_tag gives that CIGAR at pos[i] (strand-
+    selected read, no clip): one native call for the batch.
+
+    reads: (N, L) strand-selected read codes 0..4.  Returns [(e, cigar,
+    tag or None)].  A row the native routine hands back (the Python
+    version would index past an array there: a window cut short at the
+    end of the index, or k past 64) gets lv_cigar_host and tag None, for
+    the caller's md_nm_tag.  Counts its rows as lv.cigar_rows."""
+    reads = np.ascontiguousarray(reads, dtype=np.uint8)
+    N, L = reads.shape
+    count("lv.cigar_rows", N)
+    if N == 0:
+        return []
+    pos = np.asarray(pos, dtype=np.int64)
+    k = np.ascontiguousarray(k, dtype=np.int32)
+    want = np.ascontiguousarray(want_tag, dtype=np.uint8)
+    kmax = max(int(k.max()), 0)
+    # the window covers the LV text and every reference base the tag
+    # replays (at most L + k: one a match or mismatch and a deletion)
+    W = L + max(GAP_WINDOW_PAD, kmax)
+    cols = pos[:, None] + np.arange(W)
+    mix = np.ascontiguousarray(mixref[np.minimum(cols, len(mixref) - 1)],
+                               dtype=np.uint8)
+    pacw = np.ascontiguousarray(pac[np.minimum(cols, len(pac) - 1)],
+                                dtype=np.uint8)
+    mix_len = np.clip(len(mixref) - pos, 0, W).astype(np.int32)
+    pac_len = np.clip(len(pac) - pos, 0, W).astype(np.int32)
+    text_len = np.minimum(mix_len, L + GAP_WINDOW_PAD).astype(np.int32)
+    cigar_cap = 16 * (kmax + 2)
+    tag_cap = 8 * (L + kmax) + 16 * 64 + 64
+    e = np.empty(N, np.int32)
+    cig = np.zeros((N, cigar_cap), np.uint8)
+    tag = np.zeros((N, tag_cap), np.uint8)
+    arrays = (reads, mix, mix_len, text_len, pacw, pac_len, k, want)
+    rc = _cigar_fn()(N, L, W, *(a.ctypes.data for a in arrays),
+                     e.ctypes.data, cig.ctypes.data, cigar_cap,
+                     tag.ctypes.data, tag_cap)
+    if rc != 0:
+        raise RuntimeError(f"salt_lv_cigar_batch failed ({rc})")
+    cigars = cig.view(f"S{cigar_cap}")[:, 0].tolist()
+    tags = tag.view(f"S{tag_cap}")[:, 0].tolist()
+    out = []
+    for i, ei in enumerate(e.tolist()):
+        if ei == -2:
+            p = int(pos[i])
+            ei, c = lv_cigar_host(mixref[p : p + L + GAP_WINDOW_PAD],
+                                  NT2BIT_NP[np.minimum(reads[i], 4)],
+                                  int(k[i]))
+            out.append((ei, c, None))
+        else:
+            out.append((ei, cigars[i].decode(),
+                        tags[i].decode() if want[i] else None))
+    return out

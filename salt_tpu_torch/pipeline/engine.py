@@ -28,7 +28,7 @@ from ..io.sam import build_xa, emit_se, md_nm_tags_batch, sam_header
 from ..utils.metrics import count, device_trace, progress, stage, to_host
 
 from ..ops.locate import Loci
-from ..ops.lv import NT2BIT_NP, lv_cigar_host
+from ..ops.lv import NT2BIT_NP, lv_cigar_batch, lv_cigar_host
 from ..ops.ssw import SCORE_MAT16, ssw_align
 from ..ops.sw_batch import sw_score
 from .device_index import to_device_index
@@ -575,8 +575,12 @@ class SEAligner:
     def _finalize_read(
         self, name, seq, rseq, qual, found, pos, strand, n_diff, is_gap,
         n_hits, first_hit_ndiff, hits_pos, hits_ndiff, md_tag=None,
-        pre_hits=None,
+        pre_hits=None, pre_cigar=None,
     ) -> str:
+        """One read's SAM line.  md_tag, pre_hits and pre_cigar are what a
+        batched step already computed: the plain row's MD/NM/XV tag, the
+        read's query_set_hits, and a gapped read's (cigar, tag, XA
+        cigars) from _gapped_cigars; each is computed here when None."""
         o = self.opts
         idx = self.index
         L = len(seq)
@@ -592,21 +596,71 @@ class SEAligner:
             )
         mapq = gen_mapq(n_diff, b1)
         # primary cigar (query_gen_cigar, query.c:282-296)
-        if is_gap:
+        xa_cigars = None
+        if is_gap and pre_cigar is not None:
+            cigar, md_tag, xa_cigars = pre_cigar
+        elif is_gap:
             e, cigar = self._lv_cigar(pos, seq if strand == 0 else rseq, n_diff)
             md_tag = None
         else:
             cigar = f"{L}M"
         # XA cigars
         xa_with_cig = []
-        for s, p, nd in xa_entries:
+        for n, (s, p, nd) in enumerate(xa_entries):
             cig = None
             if o.print_xa_cigar and is_gap:
-                _, cig = self._lv_cigar(p, seq if s == 0 else rseq, nd)
+                if xa_cigars is not None:
+                    cig = xa_cigars[n]
+                else:
+                    _, cig = self._lv_cigar(p, seq if s == 0 else rseq, nd)
             xa_with_cig.append((s, p, nd, cig))
         xa = build_xa(idx, pos, L, xa_with_cig, o.print_xa_cigar)
         return emit_se(idx, name, seq, rseq, qual, pos, strand, mapq, cigar,
                        xa, o.print_nm_md, o.rg_id, md_tag=md_tag)
+
+    def _gapped_cigars(self, start, nb, codes, rcodes, n_amb, needs_gap,
+                       gap_res):
+        """The LV CIGARs and MD/NM/XV tags of a batch's found gapped reads,
+        and with -c the CIGARs of their XA entries, in one native call
+        (ops/lv.lv_cigar_batch, span host.cigar).  Returns {row:
+        (pre_hits, pre_cigar)} for _finalize_read."""
+        o = self.opts
+        rows = [i for i in range(nb)
+                if n_amb[start + i] <= SE_MAX_N_AMBIGUOUS and needs_gap[i]
+                and i in gap_res and not gap_res[i].get("sw")
+                and bool(gap_res[i]["found"])]
+        if not rows:
+            return {}
+        pos, reads, ks, want, hits = [], [], [], [], []
+        for i in rows:
+            r = gap_res[i]
+            p, nd = int(r["pos"]), int(r["n_diff"])
+            strands = (codes[start + i], rcodes[start + i])
+            h = set_hits(p, nd, r["n_hits"], r["first_hit_ndiff"],
+                         r["hits_pos"], r["hits_ndiff"], o.max_hits)
+            hits.append(h)
+            pos.append(p)
+            reads.append(strands[int(r["strand"])])
+            ks.append(nd)
+            want.append(o.print_nm_md)
+            if o.print_xa_cigar:
+                for s, xp, xnd in h[1]:
+                    pos.append(xp)
+                    reads.append(strands[s])
+                    ks.append(xnd)
+                    want.append(False)
+        with stage("host.cigar"):
+            got = lv_cigar_batch(self.index.mixref, self.index.pac, pos,
+                                 np.stack(reads), ks, want)
+        out = {}
+        j = 0
+        for i, h in zip(rows, hits):
+            _e, cigar, tag = got[j]
+            n_xa = len(h[1]) if o.print_xa_cigar else 0
+            xa_cigars = [c for _e, c, _t in got[j + 1 : j + 1 + n_xa]]
+            out[i] = (h, (cigar, tag, xa_cigars))
+            j += 1 + n_xa
+        return out
 
     def _lv_cigar(self, pos, strand_seq, k):
         L = len(strand_seq)
@@ -721,8 +775,11 @@ class SEAligner:
                                   int(hnv[m, s, jj])))
             for m, i in enumerate(plain_rows.tolist()):
                 pre_map[i] = (int(b1v[m]), xa_map.get(m, []))
-        # the per-read loop: MAPQ, LV CIGARs, XA and each read's SAM line
+        # the per-read loop: MAPQ, XA and each read's SAM line, after one
+        # native call for the gapped reads' LV CIGARs and tags
         with stage("host.emit"):
+            gapped = self._gapped_cigars(start, nb, codes, rcodes, n_amb,
+                                         needs_gap, gap_res)
             for i in range(nb):
                 gi = start + i
                 if n_amb[gi] > SE_MAX_N_AMBIGUOUS:
@@ -741,12 +798,14 @@ class SEAligner:
                 else:
                     r = {k: v[i] for k, v in res.items()}
                     is_gap = False
+                pre_hits, pre_cigar = gapped.get(i, (pre_map.get(i), None))
                 out_records[gi] = self._finalize_read(
                     names[gi], codes[gi], rcodes[gi], quals[gi],
                     bool(r["found"]), int(r["pos"]), int(r["strand"]),
                     int(r["n_diff"]), is_gap, r["n_hits"],
                     r["first_hit_ndiff"], r["hits_pos"], r["hits_ndiff"],
-                    md_tag=md_tags.get(i), pre_hits=pre_map.get(i),
+                    md_tag=md_tags.get(i), pre_hits=pre_hits,
+                    pre_cigar=pre_cigar,
                 )
 
     def align_file(self, fastq_path: str, out_fh, cmd: str = "salt-tpu-torch"):

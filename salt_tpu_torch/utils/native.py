@@ -1,8 +1,9 @@
-"""Loader for the port's native host library (csrc/sais.cpp and
-csrc/ssw_native.cpp).
+"""Loader for the port's native host library (csrc/sais.cpp,
+csrc/ssw_native.cpp and csrc/lv_host.cpp).
 
-The library holds the SA-IS suffix sorter (index build) and the
-bit-faithful scalar SSW (PE rescue and -X 1 winner verification).  It is
+The library holds the SA-IS suffix sorter (index build), the
+bit-faithful scalar SSW (PE rescue and -X 1 winner verification) and the
+batched LV CIGAR and MD/NM/XV tags of SE finalize.  It is
 built with g++ at first use into salt_tpu_torch/_build/.  A failed build
 raises: there is no quiet drop to the pure-numpy SSW, which is about a
 thousand times slower per call.
@@ -18,7 +19,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
-SOURCES = (_PKG / "csrc" / "sais.cpp", _PKG / "csrc" / "ssw_native.cpp")
+SOURCES = tuple(_PKG / "csrc" / f
+                for f in ("sais.cpp", "ssw_native.cpp", "lv_host.cpp"))
 LIBRARY = BUILD_DIR / "libsalt_host.so"
 
 _lib = None

@@ -205,6 +205,26 @@ def test_emit_pe_equal(tiny):
     assert n_mapped > 20
 
 
+def test_contig_offsets_follow_a_reused_id():
+    """An index that takes a freed index's id gets its own contig
+    offsets, not the cached ones of the index that had the id."""
+    def index(offsets):
+        return types.SimpleNamespace(contigs=[
+            types.SimpleNamespace(offset=o) for o in offsets])
+
+    reused = 0
+    for _ in range(50):
+        a = index([0])
+        assert tsam.contig_offsets(a).tolist() == [0]
+        freed = id(a)
+        del a
+        b = index([0, 4000, 9000])
+        reused += id(b) == freed
+        assert tsam.contig_offsets(b).tolist() == [0, 4000, 9000]
+        assert tsam.coor_pac2real(tsam.contig_offsets(b), 3, 9500) == 2
+    assert reused > 0
+
+
 @pytest.mark.parametrize("mat_name", ["SCORE_MAT16", "SCORE_MAT5"])
 def test_ssw_align_equal(mat_name):
     """The port's native SSW (its own build) and its numpy emulation
@@ -242,13 +262,14 @@ def test_ssw_align_equal(mat_name):
 
 def test_native_library_is_the_ports_own():
     """The host library builds from the port's sources into its _build
-    directory, exports both helpers, and a failed build raises."""
+    directory and exports its helpers."""
     lib = tnative.load_native()
     assert tnative.LIBRARY.parent.name == "_build"
     assert tnative.LIBRARY.parent.parent.name == "salt_tpu_torch"
     assert tnative.LIBRARY.exists()
     assert all(s.parent.name == "csrc" and s.exists() for s in tnative.SOURCES)
     assert hasattr(lib, "salt_sais_u8_i32") and hasattr(lib, "salt_ssw_align")
+    assert hasattr(lib, "salt_lv_cigar_batch")
 
 
 def test_failed_native_build_raises(tmp_path):
