@@ -79,9 +79,8 @@
    shape K1 and K2 were sent is held against the plain version; the
    ungapped sharded step (sharded_se_step) on its default devices, equal
    to the monolithic ungapped step.
-10. fast_cap=64 on one batch (SAM equal to one locate tier, the rows
-   located again, both times in turns); the data-parallel step over
-   make_mesh() and over the card named twice, equal to the unsplit step.
+10. The data-parallel step over make_mesh() and over the card named
+   twice, equal to the unsplit step.
 11. The command line on a 3,000,000-base genome in a temporary directory:
    idx --shards 4, aln, aln --shards 4, aln --part-dir as processes 0 and
    1 of 2 and --merge, all the same SAM; SALT_TPU_TRACE gives a Chrome
@@ -1511,40 +1510,6 @@ def check_lv_shapes(dev):
           f"the plain version: {todo}: equal", flush=True)
 
 
-def fast_cap_phase(idx, recs, dev, se_warm):
-    """One batch with fast_cap=64: SAM equal to one locate tier's, the
-    rows located again at the full cap, and the two in turns.  Returns
-    (launch counts, the one-tier aligner)."""
-    opts = SEOptions(l_overlap=1, max_locate=500, print_nm_md=True,
-                     print_xa_cigar=True, batch_size=BATCH, gap_batch=128)
-    one = SEAligner(idx, opts, device=dev)
-    two = SEAligner(idx, dataclasses.replace(opts, fast_cap=64), device=dev)
-    rerun, again = two._rerun_overflowed, []
-
-    def counting(fwd, rev, out, sel):
-        again.append(int(sel.numel()))
-        return rerun(fwd, rev, out, sel)
-
-    two._rerun_overflowed = counting
-    batch = recs[:BATCH]
-    one.align_records(batch)
-    reset_counts()
-    t0 = time.perf_counter()
-    out = two.align_records(batch)
-    torch.cuda.synchronize()
-    counts = report_run("fast_cap", len(out), "reads",
-                        time.perf_counter() - t0, ("lv_distance",))
-    print(f"[fast_cap] first pass at {two.opts.cap()} slots, full cap "
-          f"{two.opts.full_cap()}: {sum(again)} of {len(batch)} rows located "
-          f"again in {len(again)} sub-batches", flush=True)
-    if not again:
-        raise AssertionError("fast_cap: no row was located again")
-    assert_same_sam("fast_cap", "fast_cap=64 against one tier", se_warm, out)
-    del again[:]
-    rate_turns("fast_cap", ("one tier", one), ("fast_cap=64", two), batch)
-    return counts, one
-
-
 def mesh_phase(dix, recs, dev):
     """The data-parallel step over make_mesh() (the one card) and over the
     card named twice, each equal to the unsplit step.  Returns the launch
@@ -2418,10 +2383,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_lv_shapes(dev)
     sw_sent = time_sw_path_batches(sent, dev, ops_per_s)
-    counts, one_tier = fast_cap_phase(idx, recs, dev, se_warm)
-    note("fast_cap", counts)
-    note("mesh", mesh_phase(one_tier.dix, recs, dev))
-    del one_tier
+    note("mesh", mesh_phase(SEAligner(idx, device=dev).dix, recs, dev))
     torch.cuda.empty_cache()
     note("cli_shards", cli_phase())
     torch.cuda.empty_cache()

@@ -44,7 +44,7 @@ from ..pipeline.engine import (
     loci_rows,
 )
 from ..pipeline.pe_engine import PEAligner, PEOptions
-from ..pipeline.se import pack_result, se_gapped, se_ungapped
+from ..pipeline.se import pack_result, se_gapped, se_ungapped, se_ungapped_full
 from ..utils.metrics import to_host
 from .sharded import (
     lift_to_global,
@@ -142,17 +142,19 @@ class ShardedSEAligner(SEAligner):
                    st.l_pac.tolist())
 
     def _merged(self, results, max_diff0: int):
-        """The per-shard results' hit lists on devices[0], merged.  Returns
-        (SEResult, any shard overflowed)."""
-        hp, hn, ov = [], [], []
+        """The per-shard SEResults' hit lists on devices[0], merged."""
+        hp, hn = [], []
         for (_dix, _dev, base_off, l_pac), r in zip(self._shards(), results):
-            hpos, hnd = _shard_hits_global(r.res, base_off, l_pac)
+            hpos, hnd = _shard_hits_global(r, base_off, l_pac)
             hp.append(hpos.to(self.device, non_blocking=True))
             hn.append(hnd.to(self.device, non_blocking=True))
-            ov.append(r.overflow.to(self.device, non_blocking=True))
-        merged = merged_replay(torch.stack(hp), torch.stack(hn), max_diff0,
-                               self.opts.k_hits)
-        return merged, torch.stack(ov).any(0)
+        return merged_replay(torch.stack(hp), torch.stack(hn), max_diff0,
+                             self.opts.k_hits)
+
+    def _any_shard(self, flags):
+        """The per-shard (B,) flags on devices[0]: set where any shard's is."""
+        return torch.stack([f.to(self.device, non_blocking=True)
+                            for f in flags]).any(0)
 
     # ---------------- device steps ----------------
     # Every shard's list is kept at the verify width u (k_hits=u), never
@@ -171,16 +173,20 @@ class ShardedSEAligner(SEAligner):
             )
             for dix, dev, _base, _l_pac in self._shards()
         ]
-        merged, ovf = self._merged(outs, NOGAP_MAX_DIFF)
-        return outs, pack_result(merged, (~merged.found, ovf))
+        merged = self._merged([x.res for x in outs], NOGAP_MAX_DIFF)
+        return outs, pack_result(merged, (
+            ~merged.found, self._any_shard([x.overflow for x in outs])))
 
     def _rerun_overflowed(self, fwd, rev, out, sel):
-        """The whole sharded ungapped step again at the full cap and
-        width, exactly as the monolithic engine does with two tiers."""
-        o = self.opts
-        out_f, packed = self._ungapped(fwd[sel], rev[sel], o.full_cap(),
-                                       o.full_cap())
-        return packed, out_f
+        """Every shard's located loci of rows `sel` verified at full width,
+        its list kept whole (k_hits = full_cap()), then merged, as the
+        monolithic engine re-runs them."""
+        fc = self.opts.full_cap()
+        return pack_result(self._merged([
+            se_ungapped_full(dix, fwd[sel].to(dev), rev[sel].to(dev),
+                             *loci_rows(shard_out, sel.to(dev)), k_hits=fc)
+            for (dix, dev, _base, _l_pac), shard_out in zip(self._shards(), out)
+        ], NOGAP_MAX_DIFF))
 
     def _gapped(self, fwd, rev, out, sel, k: int, u: int):
         gs = [
@@ -188,8 +194,8 @@ class ShardedSEAligner(SEAligner):
                       *loci_rows(shard_out, sel.to(dev)), k=k, u=u, k_hits=u)
             for (dix, dev, _base, _l_pac), shard_out in zip(self._shards(), out)
         ]
-        merged, ovf = self._merged(gs, k)
-        return pack_result(merged, (ovf,))
+        return pack_result(self._merged([g.res for g in gs], k),
+                           (self._any_shard([g.overflow for g in gs]),))
 
     def _loci_host(self, out, sel):
         """The selected rows' per-shard loci, masked to the shard, lifted

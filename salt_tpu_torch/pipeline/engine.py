@@ -28,7 +28,7 @@ from ..io.sam import build_xa, emit_se, md_nm_tags_batch, sam_header
 from ..utils.metrics import count, device_trace, progress, stage, to_host
 
 from ..ops.locate import Loci
-from ..ops.lv import NT2BIT_NP, lv_cigar_batch, lv_cigar_host
+from ..ops.lv import NT2BIT_NP, lv_cigar_batch
 from ..ops.ssw import SCORE_MAT16, ssw_align
 from ..ops.sw_batch import sw_score
 from .device_index import to_device_index
@@ -62,12 +62,6 @@ class SEOptions:
     auto_k_hits: bool = True
     cap_margin: int = 128
     verify_width: int = 64   # compact unique-candidate width (u)
-    # > 0: locate slots a read and strand in the first pass (rounded up to
-    # 64, at most full_cap()); reads whose candidate stream exceeds them
-    # are seeded and located again at full_cap().  0: one tier.  With
-    # stride-1 overlap seeding each locus appears in about 2 * l_seed seed
-    # streams, so small caps overflow on most reads.
-    fast_cap: int = 0
     pe_locate: bool = False  # alnse_locate (PE) vs alnse_locate_alt caps
     gap_k: Optional[int] = None  # gapped threshold; None -> l_seq // 10
     # -X 1: Smith-Waterman extension instead of Landau-Vishkin for reads
@@ -99,12 +93,6 @@ class SEOptions:
         per-strand push cap alone."""
         c = self.max_locate + self.cap_margin
         return ((c + 63) // 64) * 64
-
-    def cap(self) -> int:
-        """Locate slots per read and strand in the first pass."""
-        if self.fast_cap <= 0:
-            return self.full_cap()
-        return min(self.full_cap(), ((self.fast_cap + 63) // 64) * 64)
 
 
 def encode_reads(seqs: List[str]) -> np.ndarray:
@@ -267,8 +255,8 @@ class SEAligner:
 
     # ---------------- device steps ----------------
     # The four steps a batch is made of.  The sharded aligner
-    # (parallel/sharded_engine.py) replaces them and keeps the row
-    # bookkeeping of _complete_batch.
+    # (parallel/sharded_engine.py) replaces them and keeps the result
+    # table of _complete_batch.
 
     def _ungapped(self, fwd, rev, cap: int, u: int):
         """Seed, locate and ungapped check of a batch at `cap` locate
@@ -285,21 +273,12 @@ class SEAligner:
         return out, pack_result(out.res, (out.needs_gap, out.overflow))
 
     def _rerun_overflowed(self, fwd, rev, out, sel):
-        """Rows `sel` of a batch, whose locate or compact verify was
-        truncated, checked again in full.  Returns (packed, out_f): out_f
-        holds the rows' loci from now on, row i of it being sel[i], and is
-        None while they are still those of `out`."""
-        o = self.opts
-        if o.fast_cap > 0:
-            # the narrow first pass may have cut the candidate stream:
-            # seed and locate again at the full cap
-            out_f, packed = self._ungapped(fwd[sel], rev[sel], o.full_cap(),
-                                           o.full_cap())
-            return packed, out_f
-        # one locate tier: the located loci are complete, verify them all
+        """Packed result of rows `sel` of a batch, whose locate or compact
+        verify was truncated, checked again over every locus the one
+        locate pass (at full_cap()) found for them."""
         return pack_result(se_ungapped_full(
             self.dix, fwd[sel], rev[sel], *loci_rows(out, sel),
-            k_hits=o.k_hits)), None
+            k_hits=self.opts.k_hits))
 
     def _gapped(self, fwd, rev, out, sel, k: int, u: int):
         """Packed gapped (Landau-Vishkin) check of the reads fwd / rev
@@ -324,105 +303,91 @@ class SEAligner:
         with stage("device.dispatch"):
             fwd = torch.from_numpy(codes).to(self.device)
             rev = torch.from_numpy(revcomp(codes)).to(self.device)
-            out, packed_dev = self._ungapped(fwd, rev, o.cap(), o.verify_width)
+            out, packed_dev = self._ungapped(fwd, rev, o.full_cap(),
+                                             o.verify_width)
         return fwd, rev, out, packed_dev
 
     def _complete_batch(self, handle):
         """Read a batch's ungapped result back, re-run its truncated rows
         and check the rows without an ungapped hit with gaps (span
-        device.complete)."""
+        device.complete).
+
+        Returns the batch's result table: unpack_result's per-row arrays
+        (found, pos, strand, n_diff, n_hits, first_hit_ndiff, hits_pos,
+        hits_ndiff), `is_gap`, whether a row's result is the gapped
+        check's, and `sw`, {row: SW record} of the rows that -X 1 found.
+        A row holds its ungapped result, overwritten by its full-width
+        re-run where it overflowed, and that by its gapped result where it
+        was checked with gaps."""
         with stage("device.complete"):
             o = self.opts
-            K = o.k_hits
+            W = 8 + 4 * o.k_hits     # the result columns of a packed matrix
             fwd, rev, out, packed_dev = handle
             L = fwd.shape[1]
             with stage("device.ungapped"):
-                packed = to_host(packed_dev)
-            res = unpack_result(packed, K)
-            needs_gap = res["n_extra"][:, 0].astype(bool)
-            overflow = res["n_extra"][:, 1].astype(bool)
+                table = to_host(packed_dev)
+            needs_gap = table[:, W].astype(bool)
+            overflow = table[:, W + 1].astype(bool)
+            is_gap = np.zeros(len(table), bool)
+            sw = {}
 
             def on_device(rows):
                 return torch.as_tensor(rows, device=self.device)
 
-            def unpack_rows(rows, packed_rows, into):
-                fr = unpack_result(to_host(packed_rows), K)
-                into.update((r, {kk: v[i] for kk, v in fr.items()})
-                            for i, r in enumerate(rows))
+            def overlay(rows, packed_rows):
+                """Rows `rows` of the table from packed_rows; returns their
+                flags past the result columns."""
+                got = to_host(packed_rows)
+                table[rows, :W] = got[:, :W]
+                return got[:, W:]
 
-            # rows whose locate or compact verify was truncated: checked again
-            # in full (rare).  `moved` says where such a row's loci went:
-            # (ungapped output, row in it); every other row's are in `out`.
-            full_res, moved = {}, {}
+            # rows whose locate or compact verify was truncated: checked
+            # again in full (rare)
             ovf_rows = np.nonzero(overflow)[0].tolist()
             count("rows.overflow", len(ovf_rows))   # 0 counts too
             if ovf_rows:
                 with stage("device.ungapped_full"):
                     for s0 in range(0, len(ovf_rows), o.gap_batch):
                         rr = ovf_rows[s0 : s0 + o.gap_batch]
-                        packed_f, out_f = self._rerun_overflowed(
-                            fwd, rev, out, on_device(rr))
-                        unpack_rows(rr, packed_f, full_res)
-                        if out_f is not None:
-                            moved.update((r, (out_f, i))
-                                         for i, r in enumerate(rr))
-            for r, fr in full_res.items():
-                needs_gap[r] = not fr["found"]
-
-            def by_source(rows):
-                """[(ungapped output, rows whose loci it holds, their rows in
-                it)]."""
-                groups = {}
-                for r in rows:
-                    src, i = moved.get(r, (out, r))
-                    g = groups.setdefault(id(src), (src, [], []))
-                    g[1].append(r)
-                    g[2].append(i)
-                return list(groups.values())
+                        overlay(rr, self._rerun_overflowed(fwd, rev, out,
+                                                           on_device(rr)))
+                needs_gap[ovf_rows] = table[ovf_rows, 0] == 0
 
             gap_rows = np.nonzero(needs_gap)[0].tolist()
-            if o.extend_algo == "sw":
-                sw_res = {}
-                if gap_rows:
-                    with stage("host.sw_extend"):
-                        strands = {}
-                        for src, rows, at in by_source(gap_rows):
-                            host = self._loci_host(src, on_device(at))
-                            strands.update(
-                                (r, [(ps[i], ks[i]) for ps, ks in host])
-                                for i, r in enumerate(rows))
-                        self._sw_extend(gap_rows, strands, int(L), fwd, rev,
-                                        sw_res)
-                return res, needs_gap, sw_res, full_res
-
-            gap_res = {}
-            if gap_rows:
+            if gap_rows and o.extend_algo == "sw":
+                with stage("host.sw_extend"):
+                    host = self._loci_host(out, on_device(gap_rows))
+                    strands = {r: [(ps[i], ks[i]) for ps, ks in host]
+                               for i, r in enumerate(gap_rows)}
+                    self._sw_extend(gap_rows, strands, int(L), fwd, rev, sw)
+            elif gap_rows:
                 k = o.gap_k if o.gap_k is not None else max(int(L) // 10, 0)
+                gap_ovf = np.zeros(len(table), bool)
 
-                def gapped(src, rows, at, u, size):
+                def gapped(rows, u, size):
                     for s0 in range(0, len(rows), size):
-                        rr = on_device(rows[s0 : s0 + size])
+                        rr = rows[s0 : s0 + size]
+                        sel = on_device(rr)
                         count("rows.gapped", len(rr))
-                        unpack_rows(rows[s0 : s0 + size], self._gapped(
-                            fwd[rr], rev[rr], src,
-                            on_device(at[s0 : s0 + size]), k, u), gap_res)
+                        gap_ovf[rr] = overlay(rr, self._gapped(
+                            fwd[sel], rev[sel], out, sel, k, u))[:, 0]
 
-                normal = [r for r in gap_rows if r not in full_res]
+                normal = [r for r in gap_rows if not overflow[r]]
                 if normal:
                     with stage("device.gapped"):
-                        gapped(out, normal, normal, o.verify_width,
-                               o.gap_batch)
+                        gapped(normal, o.verify_width, o.gap_batch)
                 # rows with more gapped candidates than the compact width, and
                 # the overflow rows: check every candidate
-                wide = [r for r in gap_rows
-                        if r in full_res or gap_res[r]["n_extra"][0]]
+                wide = [r for r in gap_rows if overflow[r] or gap_ovf[r]]
                 if wide:
                     with stage("device.gapped_full"):
-                        for src, rows, at in by_source(wide):
-                            gapped(src, rows, at,
-                                   o.cap() if src is out else o.full_cap(),
-                                   FULL_WIDTH_BATCH)
-            return res, needs_gap, gap_res, full_res
+                        gapped(wide, o.full_cap(), FULL_WIDTH_BATCH)
+                is_gap[gap_rows] = True
+            res = unpack_result(table[:, :W], o.k_hits)
+            del res["n_extra"]
+            res["is_gap"] = is_gap
+            res["sw"] = sw
+            return res
 
     def _device_sw_on(self, n_items: int) -> bool:
         """Whether the batched SW pre-filter runs for n_items candidates."""
@@ -572,101 +537,54 @@ class SEAligner:
             o.print_nm_md, o.rg_id, seq_start=int(r["seq_start"]),
         )
 
-    def _finalize_read(
-        self, name, seq, rseq, qual, found, pos, strand, n_diff, is_gap,
-        n_hits, first_hit_ndiff, hits_pos, hits_ndiff, md_tag=None,
-        pre_hits=None, pre_cigar=None,
-    ) -> str:
-        """One read's SAM line.  md_tag, pre_hits and pre_cigar are what a
-        batched step already computed: the plain row's MD/NM/XV tag, the
-        read's query_set_hits, and a gapped read's (cigar, tag, XA
-        cigars) from _gapped_cigars; each is computed here when None."""
+    def _finalize_read(self, name, seq, rseq, qual, pos, strand, n_diff, b1,
+                       xa_entries, cigar, md_tag, xa_cigars) -> str:
+        """One found read's SAM line from what its batch computed: b1 and
+        the XA entries [(strand, pos, n_diff)] of query_set_hits, the
+        primary CIGAR (query_gen_cigar, query.c:282-296), the MD/NM/XV tag
+        (None: emit_se makes it) and the XA entries' CIGARs (None: none
+        printed)."""
         o = self.opts
-        idx = self.index
-        L = len(seq)
-        if not found:
-            return emit_se(idx, name, seq, rseq, qual, UINT32_MAX, 3, 0, "", "",
-                           o.print_nm_md, o.rg_id)
-        if pre_hits is not None:
-            b1, xa_entries = pre_hits
-        else:
-            b1, xa_entries = set_hits(
-                pos, n_diff, n_hits, first_hit_ndiff, hits_pos, hits_ndiff,
-                o.max_hits,
-            )
-        mapq = gen_mapq(n_diff, b1)
-        # primary cigar (query_gen_cigar, query.c:282-296)
-        xa_cigars = None
-        if is_gap and pre_cigar is not None:
-            cigar, md_tag, xa_cigars = pre_cigar
-        elif is_gap:
-            e, cigar = self._lv_cigar(pos, seq if strand == 0 else rseq, n_diff)
-            md_tag = None
-        else:
-            cigar = f"{L}M"
-        # XA cigars
-        xa_with_cig = []
-        for n, (s, p, nd) in enumerate(xa_entries):
-            cig = None
-            if o.print_xa_cigar and is_gap:
-                if xa_cigars is not None:
-                    cig = xa_cigars[n]
-                else:
-                    _, cig = self._lv_cigar(p, seq if s == 0 else rseq, nd)
-            xa_with_cig.append((s, p, nd, cig))
-        xa = build_xa(idx, pos, L, xa_with_cig, o.print_xa_cigar)
-        return emit_se(idx, name, seq, rseq, qual, pos, strand, mapq, cigar,
-                       xa, o.print_nm_md, o.rg_id, md_tag=md_tag)
+        xa = build_xa(self.index, pos, len(seq), [
+            (s, p, nd, None if xa_cigars is None else xa_cigars[n])
+            for n, (s, p, nd) in enumerate(xa_entries)], o.print_xa_cigar)
+        return emit_se(self.index, name, seq, rseq, qual, pos, strand,
+                       gen_mapq(n_diff, b1), cigar, xa, o.print_nm_md,
+                       o.rg_id, md_tag=md_tag)
 
-    def _gapped_cigars(self, start, nb, codes, rcodes, n_amb, needs_gap,
-                       gap_res):
-        """The LV CIGARs and MD/NM/XV tags of a batch's found gapped reads,
-        and with -c the CIGARs of their XA entries, in one native call
-        (ops/lv.lv_cigar_batch, span host.cigar).  Returns {row:
-        (pre_hits, pre_cigar)} for _finalize_read."""
+    def _gapped_cigars(self, rows, res, hits, codes, rcodes):
+        """The LV CIGARs and MD/NM/XV tags of the found gapped rows `rows`
+        of a batch's result table, and with -c the CIGARs of their XA
+        entries (hits[row][1]), in one native call (ops/lv.lv_cigar_batch,
+        span host.cigar).  Returns {row: (cigar, tag, XA cigars or None)}
+        for _finalize_read."""
         o = self.opts
-        rows = [i for i in range(nb)
-                if n_amb[start + i] <= SE_MAX_N_AMBIGUOUS and needs_gap[i]
-                and i in gap_res and not gap_res[i].get("sw")
-                and bool(gap_res[i]["found"])]
         if not rows:
             return {}
-        pos, reads, ks, want, hits = [], [], [], [], []
+        ps, reads, ks, want = [], [], [], []
         for i in rows:
-            r = gap_res[i]
-            p, nd = int(r["pos"]), int(r["n_diff"])
-            strands = (codes[start + i], rcodes[start + i])
-            h = set_hits(p, nd, r["n_hits"], r["first_hit_ndiff"],
-                         r["hits_pos"], r["hits_ndiff"], o.max_hits)
-            hits.append(h)
-            pos.append(p)
-            reads.append(strands[int(r["strand"])])
-            ks.append(nd)
+            strands = (codes[i], rcodes[i])
+            ps.append(int(res["pos"][i]))
+            reads.append(strands[int(res["strand"][i])])
+            ks.append(int(res["n_diff"][i]))
             want.append(o.print_nm_md)
             if o.print_xa_cigar:
-                for s, xp, xnd in h[1]:
-                    pos.append(xp)
+                for s, xp, xnd in hits[i][1]:
+                    ps.append(xp)
                     reads.append(strands[s])
                     ks.append(xnd)
                     want.append(False)
         with stage("host.cigar"):
-            got = lv_cigar_batch(self.index.mixref, self.index.pac, pos,
-                                 np.stack(reads), ks, want)
+            got = iter(lv_cigar_batch(self.index.mixref, self.index.pac, ps,
+                                      np.stack(reads), ks, want))
         out = {}
-        j = 0
-        for i, h in zip(rows, hits):
-            _e, cigar, tag = got[j]
-            n_xa = len(h[1]) if o.print_xa_cigar else 0
-            xa_cigars = [c for _e, c, _t in got[j + 1 : j + 1 + n_xa]]
-            out[i] = (h, (cigar, tag, xa_cigars))
-            j += 1 + n_xa
+        for i in rows:
+            _e, cigar, tag = next(got)
+            xa_cigars = None
+            if o.print_xa_cigar:
+                xa_cigars = [next(got)[1] for _ in hits[i][1]]
+            out[i] = (cigar, tag, xa_cigars)
         return out
-
-    def _lv_cigar(self, pos, strand_seq, k):
-        L = len(strand_seq)
-        text = self.index.mixref[pos : pos + L + 4]
-        pattern = NT2BIT_NP[np.minimum(strand_seq, 4)]
-        return lv_cigar_host(text, pattern, int(k))
 
     # ---------------- file-level entry points ----------------
 
@@ -712,101 +630,66 @@ class SEAligner:
             if si + 1 < len(starts):
                 dispatch(starts[si + 1])  # device works while host finalizes
             start, nb, handle = inflight.pop(0)
-            res, needs_gap, gap_res, full_res = self._complete_batch(handle)
+            res = self._complete_batch(handle)
             with stage("host.finalize"):
-                self._finalize_batch(
-                    start, nb, names, codes, rcodes, quals, n_amb, res,
-                    needs_gap, gap_res, full_res, out_records)
+                self._finalize_batch(start, nb, names, codes, rcodes, quals,
+                                     n_amb, res, out_records)
         return out_records
 
     def _finalize_batch(self, start, nb, names, codes, rcodes, quals, n_amb,
-                        res, needs_gap, gap_res, full_res, out_records):
+                        res, out_records):
+        """SAM lines of a batch's reads from its result table.  Each read
+        is one of: blank (more than SE_MAX_N_AMBIGUOUS Ns), SW (found by
+        -X 1), unmapped, found plain or found gapped.  query_set_hits runs
+        once over the found rows, the MD/NM/XV tags once over the found
+        plain rows, and the gapped rows' CIGARs in one native call."""
         o = self.opts
-        # batch the pure-match MD/NM/XV tags: one pac gather + one
-        # mismatch scan for every plain-path found read
+        codes, rcodes = codes[start : start + nb], rcodes[start : start + nb]
+        blank = n_amb[start : start + nb] > SE_MAX_N_AMBIGUOUS
+        pos, strand, n_diff = res["pos"], res["strand"], res["n_diff"]
+        found = np.nonzero(res["found"] & ~blank)[0]
+        b1, appended = set_hits_batch(
+            pos[found], n_diff[found], res["n_hits"][found],
+            res["first_hit_ndiff"][found], res["hits_pos"][found],
+            res["hits_ndiff"][found], o.max_hits)
+        hp, hn = res["hits_pos"][found], res["hits_ndiff"][found]
+        xa = [[] for _ in found]
+        for m, s, j in zip(*(a.tolist() for a in np.nonzero(appended))):
+            xa[m].append((s, int(hp[m, s, j]), int(hn[m, s, j])))
+        hits = dict(zip(found.tolist(), zip(b1.tolist(), xa)))
+        gap = res["is_gap"][found]
+        plain, gapped = found[~gap], found[gap].tolist()
+        # the pure-match MD/NM/XV tags of the found plain rows: one pac
+        # gather and one mismatch scan
         md_tags = {}
-        if o.print_nm_md:
-            plain = []
-            for i in range(nb):
-                gi = start + i
-                if n_amb[gi] > SE_MAX_N_AMBIGUOUS:
-                    continue
-                if needs_gap[i] and i in gap_res:
-                    continue
-                r = full_res[i] if i in full_res else None
-                found = bool(r["found"]) if r else bool(res["found"][i])
-                if not found:
-                    continue
-                p = int(r["pos"]) if r else int(res["pos"][i])
-                st = int(r["strand"]) if r else int(res["strand"][i])
-                plain.append((i, p, st))
-            if plain:
-                pos_a = np.array([p for _i, p, _s in plain], np.int64)
-                rd = np.stack([
-                    (rcodes if s else codes)[start + i]
-                    for i, _p, s in plain
-                ])
-                for (i, _p, _s), tag in zip(
-                    plain, md_nm_tags_batch(self.index, pos_a, rd)
-                ):
-                    md_tags[i] = tag
-        # batched query_set_hits for the plain-path found rows
-        plain_rows = np.array([
-            i for i in range(nb)
-            if n_amb[start + i] <= SE_MAX_N_AMBIGUOUS
-            and not (needs_gap[i] and i in gap_res)
-            and i not in full_res and bool(res["found"][i])
-        ], dtype=np.int64)
-        pre_map = {}
-        if len(plain_rows):
-            b1v, appv = set_hits_batch(
-                res["pos"][plain_rows], res["n_diff"][plain_rows],
-                res["n_hits"][plain_rows],
-                res["first_hit_ndiff"][plain_rows],
-                res["hits_pos"][plain_rows],
-                res["hits_ndiff"][plain_rows], o.max_hits,
-            )
-            hpv = res["hits_pos"][plain_rows]
-            hnv = res["hits_ndiff"][plain_rows]
-            any_xa = appv.any(axis=(1, 2))
-            xa_map = {m: [] for m in np.nonzero(any_xa)[0]}
-            for m, s, jj in zip(*(a.tolist() for a in np.nonzero(appv))):
-                xa_map[m].append((s, int(hpv[m, s, jj]),
-                                  int(hnv[m, s, jj])))
-            for m, i in enumerate(plain_rows.tolist()):
-                pre_map[i] = (int(b1v[m]), xa_map.get(m, []))
+        if o.print_nm_md and len(plain):
+            rd = np.where(strand[plain, None] != 0, rcodes[plain], codes[plain])
+            md_tags = dict(zip(plain.tolist(), md_nm_tags_batch(
+                self.index, pos[plain].astype(np.int64), rd)))
         # the per-read loop: MAPQ, XA and each read's SAM line, after one
         # native call for the gapped reads' LV CIGARs and tags
+        plain_cigar = f"{codes.shape[1]}M"
         with stage("host.emit"):
-            gapped = self._gapped_cigars(start, nb, codes, rcodes, n_amb,
-                                         needs_gap, gap_res)
+            cigars = self._gapped_cigars(gapped, res, hits, codes, rcodes)
             for i in range(nb):
                 gi = start + i
-                if n_amb[gi] > SE_MAX_N_AMBIGUOUS:
+                if blank[i]:
                     out_records[gi] = ""  # reference emits a blank line
-                    continue
-                if needs_gap[i] and i in gap_res:
-                    r = gap_res[i]
-                    if r.get("sw"):
-                        out_records[gi] = self._emit_sw(
-                            names[gi], codes[gi], rcodes[gi], quals[gi], r)
-                        continue
-                    is_gap = True
-                elif i in full_res:
-                    r = full_res[i]
-                    is_gap = False
+                elif i in res["sw"]:
+                    out_records[gi] = self._emit_sw(
+                        names[gi], codes[i], rcodes[i], quals[gi],
+                        res["sw"][i])
+                elif i not in hits:
+                    out_records[gi] = emit_se(
+                        self.index, names[gi], codes[i], rcodes[i], quals[gi],
+                        UINT32_MAX, 3, 0, "", "", o.print_nm_md, o.rg_id)
                 else:
-                    r = {k: v[i] for k, v in res.items()}
-                    is_gap = False
-                pre_hits, pre_cigar = gapped.get(i, (pre_map.get(i), None))
-                out_records[gi] = self._finalize_read(
-                    names[gi], codes[gi], rcodes[gi], quals[gi],
-                    bool(r["found"]), int(r["pos"]), int(r["strand"]),
-                    int(r["n_diff"]), is_gap, r["n_hits"],
-                    r["first_hit_ndiff"], r["hits_pos"], r["hits_ndiff"],
-                    md_tag=md_tags.get(i), pre_hits=pre_hits,
-                    pre_cigar=pre_cigar,
-                )
+                    cigar, md_tag, xa_cigars = cigars.get(
+                        i, (plain_cigar, md_tags.get(i), None))
+                    out_records[gi] = self._finalize_read(
+                        names[gi], codes[i], rcodes[i], quals[gi],
+                        int(pos[i]), int(strand[i]), int(n_diff[i]),
+                        *hits[i], cigar, md_tag, xa_cigars)
 
     def align_file(self, fastq_path: str, out_fh, cmd: str = "salt-tpu-torch"):
         print(sam_header(self.index, cmd, self.opts.rg_id), file=out_fh)

@@ -118,17 +118,11 @@ class PEAligner:
 
     # ---------------- host pairing ----------------
 
-    def _mixref_window(self, start, end):
-        return self.index.mixref[start : end + 1]
-
-    def _pac_window(self, start, end):
-        return self.index.pac[start : end + 1]
-
     def _sw_snpaware(self, q: _End, start, end, strand) -> bool:
         """snpaln_sw_snpaware (alnpe.c:261-327)."""
         if start >= self.index.l_pac:
             return False  # reference would exit(1)
-        ref = self._mixref_window(int(start), int(end)).astype(np.int8)
+        ref = self.index.mixref[int(start) : int(end) + 1].astype(np.int8)
         seq = q.rseq if strand else q.seq
         read = NT2BIT_NP[np.minimum(seq, 4)].astype(np.int8)
         r = ssw_align(read, ref, SCORE_MAT16, SW_GAP_OPEN, SW_GAP_EXTEND,
@@ -149,7 +143,7 @@ class PEAligner:
         """snpaln_sw (alnpe.c:330-393): plain 2-bit reference, 5x5 matrix."""
         if start >= self.index.l_pac:
             return False
-        ref = self._pac_window(int(start), int(end)).astype(np.int8)
+        ref = self.index.pac[int(start) : int(end) + 1].astype(np.int8)
         seq = (q.rseq if strand else q.seq).astype(np.int8)
         r = ssw_align(seq, ref, SCORE_MAT5, SW_GAP_OPEN, SW_GAP_EXTEND,
                       q.l_seq // 2)
@@ -178,14 +172,6 @@ class PEAligner:
             _, q.cigar = lv_cigar_host(text, pattern, int(q.n_diff))
         else:
             q.cigar = f"{q.l_seq}M"
-
-    def _pairing2(self, q0: _End, q1: _End, scores=None) -> bool:
-        if self._pairing2_fast(q0, q1):
-            return True
-        # singleton SW rescue inside pairing2 (alnpe.c:204-252)
-        return self._run_rescue(
-            q0, q1, self._pairing2_requests(q0, q1), scores, snp=True
-        )
 
     def _pairing2_fast(self, q0: _End, q1: _End) -> bool:
         """pairing2 minus the SW rescue: primary insert/orientation
@@ -290,13 +276,6 @@ class PEAligner:
             self._gen_cigar(q1)
         return False
 
-    def _pairing_singleton(self, q0: _End, q1: _End, scores=None) -> bool:
-        if q0.pos == UINT32_MAX and q1.pos == UINT32_MAX:
-            return False
-        return self._run_rescue(
-            q0, q1, self._singleton_requests(q0, q1), scores, snp=False
-        )
-
     def _singleton_requests(self, q0: _End, q1: _End):
         """pairing_singleton's plain-reference SW windows, in order
         (alnpe.c:395-480)."""
@@ -360,7 +339,7 @@ class PEAligner:
         # length, batched; 2-deep software pipeline
         # (dispatch batch i+1 before completing batch i)
         B = o.batch_size
-        results = {}
+        ends = {}   # end -> (its batch's result table, its row there)
         for _L, idxs in group_by_length(seqs):
             starts = list(range(0, len(idxs), B))
             inflight = []
@@ -376,18 +355,8 @@ class PEAligner:
                 if si + 1 < len(starts):
                     dispatch(starts[si + 1])
                 sub, handle = inflight.pop(0)
-                res, needs_gap, gap_res, full_res = (
-                    self._se._complete_batch(handle)
-                )
-                for i, gi in enumerate(sub):
-                    if needs_gap[i] and i in gap_res:
-                        results[gi] = (gap_res[i], True)
-                    elif i in full_res:
-                        results[gi] = (full_res[i], False)
-                    else:
-                        results[gi] = (
-                            {k: v[i] for k, v in res.items()}, False
-                        )
+                res = self._se._complete_batch(handle)
+                ends.update((gi, (res, i)) for i, gi in enumerate(sub))
 
         states = []   # (e0, e1, mode, reqs)
         for pi in range(n):
@@ -395,15 +364,14 @@ class PEAligner:
                 names[pi], names[n + pi], quals[pi], quals[n + pi],
                 codes_list[pi], rcodes_list[pi],
                 codes_list[n + pi], rcodes_list[n + pi],
-                n_amb[pi], n_amb[n + pi],
-                results[pi], results[n + pi],
+                n_amb[pi], n_amb[n + pi], ends[pi], ends[n + pi],
             ))
         return self._finalize_states(states)
 
     def _fill_states_fast(self, states, rows, p0, P, names, quals,
                           codes_list, rcodes_list, n_amb, n, res):
-        """Vectorized _make_state for pairs whose ends both come from
-        plain `res` rows (no gapped/full-width overlay — the vast
+        """Vectorized _make_state for pairs of rows `rows` and P + rows of
+        the result table `res` with neither end gapped (the vast
         majority).  Semantics identical to the per-pair path:
         query_set_hits (query.c:297-333) and the pairing2 fast stage
         (primary insert check + hit-list cross product, alnpe.c:94-203)
@@ -538,24 +506,24 @@ class PEAligner:
                 states[i] = (e0, e1, "none", None)
 
     def _make_state(self, name0, name1, qual0, qual1, c0, rc0, c1, rc1,
-                    amb0, amb1, res0, res1):
-        """Per-pair state: SE results -> _End pair + pairing mode/requests
-        (alnpe_core1 flow)."""
+                    amb0, amb1, end0, end1):
+        """Per-pair state: the ends' SE results, each (result table of
+        SEAligner._complete_batch, row), -> _End pair + pairing
+        mode/requests (alnpe_core1 flow)."""
         o = self.opts
         e0 = _End(name0, c0, rc0, qual0)
         e1 = _End(name1, c1, rc1, qual1)
-        for amb, e, rr in ((amb0, e0, res0), (amb1, e1, res1)):
+        for amb, e, (r, i) in ((amb0, e0, end0), (amb1, e1, end1)):
             if amb > PE_MAX_N_AMBIGUOUS:
                 continue  # end stays unmapped (alnpe.c:495)
-            r, is_gap = rr
-            if bool(r["found"]):
-                e.pos = int(r["pos"])
-                e.strand = int(r["strand"])
-                e.n_diff = int(r["n_diff"])
-                e.is_gap = 1 if is_gap else 0
+            if r["found"][i]:
+                e.pos = int(r["pos"][i])
+                e.strand = int(r["strand"][i])
+                e.n_diff = int(r["n_diff"][i])
+                e.is_gap = int(r["is_gap"][i])
                 b1, xa = set_hits(
-                    e.pos, e.n_diff, r["n_hits"], r["first_hit_ndiff"],
-                    r["hits_pos"], r["hits_ndiff"], o.max_hits,
+                    e.pos, e.n_diff, r["n_hits"][i], r["first_hit_ndiff"][i],
+                    r["hits_pos"][i], r["hits_ndiff"][i], o.max_hits,
                 )
                 e.b0 = e.n_diff
                 e.b1 = b1
@@ -649,35 +617,21 @@ class PEAligner:
             if si + 1 < len(starts):
                 dispatch(starts[si + 1])
             p0, cnt, handle = inflight.pop(0)
-            res, needs_gap, gap_res, full_res = (
-                self._se._complete_batch(handle)
-            )
-
-            def get(i):
-                if needs_gap[i] and i in gap_res:
-                    return (gap_res[i], True)
-                if i in full_res:
-                    return (full_res[i], False)
-                return ({k: v[i] for k, v in res.items()}, False)
-
-            def plain(i):
-                return not (needs_gap[i] and i in gap_res) and i not in full_res
-
+            res = self._se._complete_batch(handle)
+            gap = res["is_gap"][:cnt] | res["is_gap"][cnt:]
             states = [None] * cnt
-            fast_rows = []
+            fast_rows = np.nonzero(~gap)[0].tolist()
             with stage("host.pairing"):
-                for i in range(cnt):
+                # pairs with a gapped end: the per-pair path, whose ends
+                # carry is_gap into the pairing and their LV CIGARs
+                for i in np.nonzero(gap)[0].tolist():
                     pi = p0 + i
-                    if plain(i) and plain(cnt + i):
-                        fast_rows.append(i)
-                    else:
-                        states[i] = self._make_state(
-                            names[pi], names[n + pi], quals[pi], quals[n + pi],
-                            codes_list[pi], rcodes_list[pi],
-                            codes_list[n + pi], rcodes_list[n + pi],
-                            n_amb[pi], n_amb[n + pi],
-                            get(i), get(cnt + i),
-                        )
+                    states[i] = self._make_state(
+                        names[pi], names[n + pi], quals[pi], quals[n + pi],
+                        codes_list[pi], rcodes_list[pi],
+                        codes_list[n + pi], rcodes_list[n + pi],
+                        n_amb[pi], n_amb[n + pi], (res, i), (res, cnt + i),
+                    )
                 if fast_rows:
                     self._fill_states_fast(states, fast_rows, p0, cnt, names,
                                            quals, codes_list, rcodes_list,

@@ -167,7 +167,7 @@ def parts(al: SEAligner, sampled_al: SEAligner) -> list:
     options; the gapped part runs on the first GAPPED_ROWS rows of the
     batch's ungapped loci."""
     dix, o = al.dix, al.opts
-    cap = o.cap()
+    cap = o.full_cap()
 
     def seed(f, r):
         seq2 = torch.cat([f, r], 0).long()

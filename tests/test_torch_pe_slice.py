@@ -190,18 +190,16 @@ def test_fast_path_matches_make_state(planted, seed):
     names = [f"r{i}" for i in range(2 * n)]
     quals = ["I" * L] * (2 * n)
 
-    def per_pair(aligner):
-        out = []
-        for i in range(n):
-            r0 = ({k: v[i] for k, v in res.items()}, False)
-            r1 = ({k: v[n + i] for k, v in res.items()}, False)
-            out.append(aligner._make_state(
-                names[i], names[n + i], quals[i], quals[n + i],
-                codes[i], rcodes[i], codes[n + i], rcodes[n + i],
-                n_amb[i], n_amb[n + i], r0, r1))
-        return out
+    def per_pair(aligner, end):
+        return [aligner._make_state(
+            names[i], names[n + i], quals[i], quals[n + i],
+            codes[i], rcodes[i], codes[n + i], rcodes[n + i],
+            n_amb[i], n_amb[n + i], end(i), end(n + i)) for i in range(n)]
 
-    want, jwant = per_pair(al), per_pair(jal)
+    # the port's ends are rows of a result table, salt_tpu's row dicts
+    table = dict(res, is_gap=np.zeros(2 * n, bool))
+    want = per_pair(al, lambda i: (table, i))
+    jwant = per_pair(jal, lambda i: ({k: v[i] for k, v in res.items()}, False))
     states = [None] * n
     al._fill_states_fast(states, list(range(n)), 0, n, names, quals, codes,
                          rcodes, n_amb, n, res)

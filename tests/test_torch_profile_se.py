@@ -93,7 +93,7 @@ def test_parts_compute_the_aligner_step(fixture):
     codes = encode_reads([r.seq for r in recs[:B]])
     f, r = torch.from_numpy(codes), torch.from_numpy(revcomp(codes))
     o = al.opts
-    out, want = al._ungapped(f, r, o.cap(), o.verify_width)
+    out, want = al._ungapped(f, r, o.full_cap(), o.verify_width)
     assert torch.equal(fns["ungapped"](f, r)[1], want)
     assert torch.equal(fns["ungapped (sampled)"](f, r)[1], want)
 

@@ -3,8 +3,8 @@ tests/test_sharded_engine.py the port's sharded SAM (devices=["cpu"] * S)
 is byte-identical to the port's monolithic SAM and to salt_tpu's
 monolithic SAM, for SE with Landau-Vishkin extension at 8 and 3 shards,
 SE with Smith-Waterman extension and PE at 4, and on a repeat-dense
-variant where small widths force the overflow rows (one and two locate
-tiers); and to salt_tpu's own sharded engine at 2 shards, also on reads
+variant where small widths force the overflow rows (Landau-Vishkin at 4
+and 8 shards, Smith-Waterman at 2); and to salt_tpu's own sharded engine at 2 shards, also on reads
 within 16 bases of a bin's first and last base, where the one rule that
 tells a sharded run from a monolithic one is pinned down.  Tolerance:
 exact."""
@@ -47,9 +47,9 @@ SE_CASES = {
     "lv_3_uneven_bins": ({}, {}, 3),
     "x1_4": ({}, dict(extend_algo="sw"), 4),
     "overflow_4": (DENSE, NARROW, 4),
-    "overflow_two_tiers_4": (DENSE, dict(fast_cap=64, **NARROW), 4),
-    "overflow_x1_two_tiers_2": (DENSE, dict(extend_algo="sw", fast_cap=64,
-                                            **NARROW), 2),
+    # a shard of 8 holds at most 4 copies of the repeat: verify width 3
+    "overflow_8": (DENSE, dict(NARROW, verify_width=3), 8),
+    "overflow_x1_2": (DENSE, dict(extend_algo="sw", **NARROW), 2),
 }
 
 
@@ -122,17 +122,17 @@ def test_sharded_se_runs_the_gapped_step(se_runs, case):
     assert any("XA:Z:" in line and line.count(";") >= 3 for line in got)
 
 
-@pytest.mark.parametrize("case", ["overflow_4", "overflow_two_tiers_4"])
+@pytest.mark.parametrize("case", ["overflow_4", "overflow_8"])
 def test_sharded_overflow_rows_ran(se_runs, case):
-    """The narrow widths send rows through the full re-run of the ungapped
-    step and the full-width gapped check."""
+    """The narrow widths send rows through the full-width re-verify of
+    the ungapped step and the full-width gapped check."""
     stages = se_runs(case)[3]
     assert stages["device.ungapped_full"] > 0
     assert stages["device.gapped_full"] > 0
 
 
 def test_sharded_overflow_rows_ran_with_sw_extension(se_runs):
-    stages = se_runs("overflow_x1_two_tiers_2")[3]
+    stages = se_runs("overflow_x1_2")[3]
     assert stages["device.ungapped_full"] > 0 and stages["host.sw_extend"] > 0
 
 
