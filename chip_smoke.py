@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the three kernel sources (csrc/lv.cu with both
-   forms of K1, csrc/sw.cu, csrc/seed.cu) and the native host library,
-   side by side.
+   versions, and builds the four kernel sources (csrc/lv.cu with both
+   forms of K1, csrc/sw.cu, csrc/seed.cu, csrc/sa_walk.cu) and the native
+   host library, side by side.
 2. K1 kernel phase: the CUDA LV kernel against its plain PyTorch version
    on the card, exact equality, over k in {0, 3, 7, 8, 10, 15, 16, 30}
    (every group size of the kernel and the boundaries between them), L in
@@ -62,9 +62,15 @@
    CPU (and, for the SW paths, on the card with the pre-filter off).
 7. Sampled suffix-array mode on the same index (sa_intv = 8): the LF-walk
    resolver on 2 x 65,536 random ranks against the host tables, with the
-   fused and with standalone rank planes; SE with Landau-Vishkin extension
-   on the same reads, SAM byte-identical to full mode; one paired-end
-   chunk likewise; the device bytes of the locate tables in both modes.
+   fused and with standalone rank planes, and there the walk kernel K4
+   against its plain version on every lane (every other one inactive);
+   one sampled locate of a real batch (4,096 reads, both strands) through
+   K4 and through the plain version, every block's values and the loci
+   equal, and K4 timed (CUDA-graph replay) beside the plain version on
+   its first block of 8,192 x 128 lanes; SE with Landau-Vishkin extension
+   on the same reads, SAM byte-identical to full mode, K4 launched in the
+   timed batches; one paired-end chunk likewise; the device bytes of the
+   locate tables in both modes.
 8. Polish on the card over the SE and the PE SAM of phase 6 (Landau-Vishkin
    scoring through K1's byte form), byte-identical to the same call on the
    CPU; SSW scoring (-s) on 512 records; then K1's byte form timed at the
@@ -155,6 +161,8 @@ from salt_tpu_torch.index.build import build_index_from_data
 from salt_tpu_torch.index.store import load_index, save_index
 from salt_tpu_torch.io.fasta import SeqRecord, read_records
 from salt_tpu_torch.io.snp import SnpBlock
+from salt_tpu_torch.ops import locate as locate_mod
+from salt_tpu_torch.ops.locate import locate, resolve_sampled_plain
 from salt_tpu_torch.ops.lv import lv_distance_plain, window_nibbles
 from salt_tpu_torch.ops.lv_cuda import (
     LV,
@@ -168,7 +176,9 @@ from salt_tpu_torch.ops.rank import (
     rank_excl,
     rank_index_on,
 )
-from salt_tpu_torch.ops.seed import seed_overlap_plain
+from salt_tpu_torch.ops.sa_walk_cuda import SA_WALK as K4
+from salt_tpu_torch.ops.sa_walk_cuda import resolve_sampled_cuda
+from salt_tpu_torch.ops.seed import seed_overlap, seed_overlap_plain
 from salt_tpu_torch.ops.seed_cuda import SEED as K3
 from salt_tpu_torch.ops.seed_cuda import seed_overlap_cuda
 from salt_tpu_torch.ops.sw_batch import sw_score_numpy, sw_score_plain
@@ -237,7 +247,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 INT32_LANES_PER_SM = 64       # Hopper SM: 64 int32 lanes, one op a clock
 PROFILE_TRIES = 2
 KERNELS = {"lv_distance": LV, "lv_distance_bytes": LV_BYTES, "sw_score": SW,
-           "seed_overlap": K3}
+           "seed_overlap": K3, "sa_walk": K4}
 # K1's byte form: polish's match codes (bases, N, 3 - N of a reverse
 # strand read, any stray byte) and its call (k = 13, no window padding)
 POLISH_CODES = np.array([1, 2, 4, 8, 16, 32, 64], np.uint8)
@@ -1175,6 +1185,82 @@ def resolver_check(idx, al, dev):
         raise AssertionError(f"sampled locate differs: {out}")
 
 
+SA_WALK_ROWS = 8192   # one 4,096-read batch of the benchmark, both strands
+
+
+def sa_walk_kernel_check(al, recs, dev):
+    """K4 against resolve_sampled_plain in one sampled locate of a real
+    batch (SA_WALK_ROWS // 2 reads and their reverse complements, seeded
+    with the aligner's options, located at its full cap): one K4 launch a
+    block, every block's values and the loci and overflow flags equal.
+    Then K4 and the plain version in turns on the first block, K4's
+    device time (CUDA-graph replay) and its bound: per lane 32-byte
+    sectors for the select row and the stop value, three more a step
+    (symbol word, rank row, select row), and its 18 bytes of input and
+    output; the steps are K4's own over zeroed stop values.  Returns the
+    times."""
+    o, dix = al.opts, al.dix
+    fwd = encode_reads([r.seq for r in recs[: SA_WALK_ROWS // 2]])
+    seq2 = torch.from_numpy(np.concatenate([fwd, revcomp(fwd)])
+                            .astype(np.int64)).to(dev)
+    c, r = seed_overlap(dix.ri_c, dix.ri_r, dix.lkt, seq2, dix.l_seed,
+                        o.l_overlap, o.max_seed, r_lkt_sp=dix.r_lkt_sp,
+                        r_lkt_ep=dix.r_lkt_ep)
+    blocks = []
+    real = locate_mod.resolve_sampled
+
+    def noting(*args):
+        blocks.append(args)
+        return real(*args)
+
+    def run(resolve):
+        locate_mod.resolve_sampled = resolve
+        try:
+            return locate(c, r, dix.sa_cat, dix.c_sa_len, fwd.shape[1],
+                          dix.l_pac, o.max_locate, o.full_cap(),
+                          pe_mode=o.pe_locate, sampled=al.sampled,
+                          ri_c=dix.ri_c, ri_r=dix.ri_r, chunk=o.locate_chunk)
+        finally:
+            locate_mod.resolve_sampled = real
+
+    before = K4.launches
+    got = run(noting)
+    launched = K4.launches - before
+    want = run(resolve_sampled_plain)
+    torch.cuda.synchronize()
+    bad = [name for name, a, b in (
+        ("pos", got.loci.pos, want.loci.pos),
+        ("pushed", got.loci.pushed, want.loci.pushed),
+        ("overflow", got.overflow, want.overflow)) if not torch.equal(a, b)]
+    lanes_bad = sum(int((resolve_sampled_cuda(*a) != resolve_sampled_plain(*a))
+                        .sum()) for a in blocks)
+    print(f"[sampled] locate of {seq2.shape[0]} rows at cap {o.full_cap()}: "
+          f"{len(blocks)} blocks of {blocks[0][3].shape[1] if blocks else 0} "
+          f"columns, {launched} K4 launches; loci {bad or 'equal'}; "
+          f"{lanes_bad} lanes differ from the plain version; "
+          f"{int(got.loci.pushed.sum())} loci pushed", flush=True)
+    if bad or lanes_bad or not blocks or launched != len(blocks):
+        raise AssertionError(f"K4 != plain in a sampled locate: loci {bad}, "
+                             f"{lanes_bad} lanes, {launched} launches for "
+                             f"{len(blocks)} blocks")
+    args = blocks[0]
+    sam, rank = args[0], args[3]
+    zeroed = dataclasses.replace(sam, samples_cat=torch.zeros_like(
+        sam.samples_cat))
+    steps = resolve_sampled_cuda(zeroed, *args[1:])
+    steps = int(torch.where(steps == 0xFFFFFFFF, 0, steps).sum())
+    lanes = rank.numel()
+    t = time_turns(lambda: resolve_sampled_cuda(*args),
+                   lambda: resolve_sampled_plain(*args),
+                   kern_reps=50, plain_reps=3)
+    t.update(shape={"rows": rank.shape[0], "columns": rank.shape[1],
+                    "intv": sam.intv, "active": int(args[5].sum()),
+                    "steps": steps},
+             **bound(32 * (3 * steps + 2 * lanes) + 18 * lanes,
+                     24 * (steps + lanes), int32_ops_per_s()))
+    return t
+
+
 def rate_turns(tag, first, second, recs):
     """The reads through two warm aligners (name, aligner) in turns first,
     second, second, first within one process: two rates are compared
@@ -1225,11 +1311,11 @@ def mode_turns(idx, al_sampled, opts, recs, dev):
 
 def sampled_phase(idx, recs, truth, dev, full_bytes, se_sam, pe_reads, pe_sam):
     """Sampled SA mode on the index of the other phases: the resolver
-    check, SE LV on the same reads and one PE chunk, each SAM equal to
-    full mode's; the two modes' SE rates in turns.  Returns {path: launch
-    counts}."""
+    check, K4 in a real locate, SE LV on the same reads and one PE chunk,
+    each SAM equal to full mode's; the two modes' SE rates in turns.
+    Returns ({path: launch counts}, K4's times)."""
     counts, al, opts, _warm, _out = se_phase(
-        "sampled", idx, recs, truth, dev, ("lv_distance",), N_TIMED,
+        "sampled", idx, recs, truth, dev, ("lv_distance", "sa_walk"), N_TIMED,
         same_as=se_sam, sa_mode="sampled", sa_intv=8)
     if al.dix.sa_cat.numel() != 2:
         raise AssertionError("sampled mode holds a full sa_cat")
@@ -1241,6 +1327,7 @@ def sampled_phase(idx, recs, truth, dev, full_bytes, se_sam, pe_reads, pe_sam):
           f"{al.dix.ri_c.bc.numel() * al.dix.ri_c.bc.element_size()} bytes",
           flush=True)
     resolver_check(idx, al, dev)
+    k4_times = sa_walk_kernel_check(al, recs, dev)
     mode_turns(idx, al, opts, recs, dev)
     route_turns(idx, al, opts, recs, dev)
     del al
@@ -1256,9 +1343,10 @@ def sampled_phase(idx, recs, truth, dev, full_bytes, se_sam, pe_reads, pe_sam):
     out = pe.align_pairs(r1, r2)
     torch.cuda.synchronize()
     pe_counts = report_run("sampled pe", len(out) // 2, "pairs",
-                           time.perf_counter() - t0, ("lv_distance", "sw_score"))
+                           time.perf_counter() - t0,
+                           ("lv_distance", "sw_score", "sa_walk"))
     assert_same_sam("sampled pe", "the same chunk again", pe_sam, out)
-    return {"se_sampled": counts, "pe_sampled": pe_counts}
+    return {"se_sampled": counts, "pe_sampled": pe_counts}, k4_times
 
 
 # ---------------------------------------------------------------- polish
@@ -1647,7 +1735,7 @@ def cli_phase():
 
 
 def build_all():
-    """Builds the three kernel sources and the native host library side by
+    """Builds the four kernel sources and the native host library side by
     side (one compiler process each) and prints what ptxas reports; K1's byte
     form is an entry point of lv.cu's library."""
     t0 = time.perf_counter()
@@ -1658,14 +1746,14 @@ def build_all():
         return name, time.perf_counter() - t
 
     jobs = [("lv.cu", LV.build), ("sw.cu", SW.build), ("seed.cu", K3.build),
-            ("host library (g++)", load_native)]
+            ("sa_walk.cu", K4.build), ("host library (g++)", load_native)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for name, dt in pool.map(lambda j: one(*j), jobs):
             print(f"[build] {name}: {dt:.2f} s", flush=True)
-    print(f"[build] all four side by side: {time.perf_counter() - t0:.2f} s",
+    print(f"[build] all five side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
     LV_BYTES.build()
-    for kern in (LV, SW, K3):
+    for kern in (LV, SW, K3, K4):
         report_ptxas(kern)
 
 
@@ -1680,7 +1768,8 @@ def report_ptxas(kern):
     for line in kern.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            base = re.search(r"\d+((?:sw|lv|seed)_\w+?_kernel)", m.group(1))
+            base = re.search(r"\d+((?:sw|lv|seed|sa)_\w+?_kernel)",
+                             m.group(1))
             args = re.findall(r"L[bi](\d+)E", m.group(1))
             name = f"{base.group(1) if base else m.group(1)}<{', '.join(args)}>"
         elif "bytes stack frame" in line:
@@ -2387,10 +2476,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     note("cli_shards", cli_phase())
     torch.cuda.empty_cache()
-    for path, counts in sampled_phase(idx, recs, truth, dev, full_bytes,
-                                      (se_warm, se_out), pe_reads,
-                                      pe_warm).items():
+    by_path, k4_times = sampled_phase(idx, recs, truth, dev, full_bytes,
+                                      (se_warm, se_out), pe_reads, pe_warm)
+    for path, counts in by_path.items():
         note(path, counts)
+    print_times(f"sa_walk {k4_times['shape']}", k4_times)
     by_path, largest = polish_phase(idx, se_out, pe_warm + pe_out, dev)
     for path, counts in by_path.items():
         note(path, counts)
@@ -2429,6 +2519,9 @@ def main() -> int:
         kernel_record("seed_overlap", K3, "none: XLA, salt_tpu/ops/seed.py",
                       launches["seed_overlap"], 0, seed_times[4],
                       [seed_times[80]]),
+        # salt_tpu walks in XLA, not in a TPU kernel of its own
+        kernel_record("sa_walk", K4, "none: XLA, salt_tpu/ops/locate.py",
+                      launches["sa_walk"], 0, k4_times),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

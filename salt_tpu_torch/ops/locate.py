@@ -3,9 +3,11 @@ Align_src/alnse.c:501-731).  Port of salt_tpu/ops/locate.py.
 
 In full suffix-array mode each locate is one gather from the full SA /
 coordinate table; in sampled mode it is a bounded LF walk to a sampled
-rank (`resolve_sampled`).  The reference's sequential per-strand push
-cap is reproduced with prefix sums over a fixed slot capacity, over all
-slots at once or block of columns by block.  Seeds are ordered C first,
+rank (`resolve_sampled`: the CUDA kernel K4 on the card, one launch a
+block of slots; `resolve_sampled_plain` on the CPU).  The reference's
+sequential per-strand push cap is reproduced with prefix sums over a
+fixed slot capacity, over all slots at once or block of columns by
+block.  Seeds are ordered C first,
 then R, each group stably by interval width (alnse.c:307-308).
 """
 
@@ -18,6 +20,7 @@ import torch
 from ..constants import MAX_LOC_POS
 from ..utils.metrics import count, stage, to_host
 
+from . import sa_walk_cuda
 from .rank import planes_fused, rank_excl
 from .seed import Seeds
 from .uint import U32, as_i32, popcount32, take, take_u32, umin
@@ -61,6 +64,20 @@ def _family(seeds: Seeds, is_r: bool, pe_mode: bool, max_locate: int):
 
 def resolve_sampled(sampled, ri_c, ri_r, rank: torch.Tensor,
                     is_r: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Rank -> coordinate (uint32 in int64) of every lane by bounded LF
+    walks against the sampled tables: the CUDA kernel K4
+    (ops/sa_walk_cuda.py, csrc/sa_walk.cu) on CUDA tensors, one launch a
+    call; `resolve_sampled_plain` on CPU tensors.  The two agree on every
+    lane."""
+    if rank.is_cuda:
+        return sa_walk_cuda.resolve_sampled_cuda(sampled, ri_c, ri_r, rank,
+                                                 is_r, active)
+    return resolve_sampled_plain(sampled, ri_c, ri_r, rank, is_r, active)
+
+
+def resolve_sampled_plain(sampled, ri_c, ri_r, rank: torch.Tensor,
+                          is_r: torch.Tensor,
+                          active: torch.Tensor) -> torch.Tensor:
     """Rank -> coordinate (uint32 in int64) by bounded LF walks against
     the sampled tables (pipeline/device_index.SampledSA): both families
     walk to a flagged stop rank within intv - 1 steps.  Reproduces the

@@ -14,9 +14,10 @@ from .cuda_build import MAX_READ_LEN, CudaKernel, check_tensor
 from .rank import RankIndex
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FAMILY = [_P, _L, _L, _L, _P, _I]      # bc, rows, row_off, n_words, cfreq, n
+# a family's rank index as the kernels take it (family_args)
+FAMILY = [_P, _L, _L, _L, _P, _I]       # bc, rows, row_off, n_words, cfreq, n
 SEED = CudaKernel("seed.cu", {"salt_seed_overlap": (
-    [_P, _I, _I, _I, _I, _I, _I, _L, _I] + _FAMILY + _FAMILY
+    [_P, _I, _I, _I, _I, _I, _I, _L, _I] + FAMILY + FAMILY
     + [_L, _P, _L, _P, _L, _P, _L] + [_P] * 8 + [_P])})
 # the kernel keeps each family's C-array in shared memory
 MAX_CFREQ = 16
@@ -25,7 +26,10 @@ MAX_CFREQ = 16
 MODE_R_JUMP, MODE_R_FULL, MODE_SEED_ONLY_REF = 0, 1, 2
 
 
-def _family(ri: RankIndex, name: str, dev) -> list:
+def family_args(ri: RankIndex, name: str, dev) -> list:
+    """A family's FAMILY arguments; raises on planes or a C-array the
+    kernels do not take.  Two views that share one plane tensor pass the
+    same pointer and row count, each with its own row_off."""
     check_tensor(ri.bc, f"{name}.bc", torch.int32, (ri.bc.shape[0], 2), dev)
     n_cfreq = ri.cfreq.shape[0] if ri.cfreq.dim() == 1 else 0
     if not 1 <= n_cfreq <= MAX_CFREQ:
@@ -84,7 +88,7 @@ def seed_overlap_cuda(
                   + _table(r_lkt_ep, "r_lkt_ep", dev))
     else:
         mode, r_tabs = MODE_R_FULL, [None, 0, None, 0]
-    args = (_family(ri_c, "ri_c", dev) + _family(ri_r, "ri_r", dev)
+    args = (family_args(ri_c, "ri_c", dev) + family_args(ri_r, "ri_r", dev)
             + [ri_r.n] + _table(lkt, "lkt", dev) + r_tabs)
     S = (L - l_seed) // l_overlap + 1
     out = torch.empty((6, B, S), dtype=torch.int64, device=dev)

@@ -10,7 +10,9 @@ The tables are the aligner's, sampled every SEOptions.sa_intv (8, as
 salt's C_sa_intv).  Each family's ranks include rank 0 and, in the R
 part, 64 ranks on a '#'.  Prints one JSON line: the ranks, the number of
 them where each route differs from the plain walk, and the seconds each
-took.  Exits 1 where any differs.
+took; on a card, where resolve_sampled is the kernel K4, also the lanes
+where K4 differs from its plain version, resolve_sampled_plain, with
+every other lane inactive.  Exits 1 where any differs.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ..index.store import load_index
-from ..ops.locate import resolve_sampled
+from ..ops.locate import resolve_sampled, resolve_sampled_plain
 from ..ops.rank import rank_index_on
 from ..pipeline.device_index import to_device_index
 from ..pipeline.engine import SEOptions
@@ -85,6 +87,13 @@ def check(idx, device, n: int = 65536, tables=None) -> dict:
         out[f"resolve_sampled_{name}_s"] = time.perf_counter() - t
         out[f"resolve_sampled_{name}_differ"] = int(np.sum(got.numpy()
                                                            != want))
+        if dev.type == "cuda":
+            # the kernel against its plain version on every lane, inactive
+            # ones too (every other rank)
+            half = active & (torch.arange(len(ranks), device=dev) % 2 == 0)
+            k4 = resolve_sampled(sampled, ri_c, ri_r, rk, fam, half)
+            plain = resolve_sampled_plain(sampled, ri_c, ri_r, rk, fam, half)
+            out[f"k4_{name}_against_plain_differ"] = int((k4 != plain).sum())
     return out
 
 
