@@ -1,0 +1,9 @@
+STAGES = ("device.dispatch", "device.ungapped", "device.ungapped_full",)
+
+
+def read(run):
+    """The device ungapped step (seed, locate, verify, overflow re-runs) ms per 1,000 reads, host clock."""
+    s = run["stages"]
+    if not run["staged_units"] or not any(n in s for n in STAGES):
+        return None
+    return sum(s.get(n, 0.0) for n in STAGES) * 1e6 / run["staged_units"]

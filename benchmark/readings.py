@@ -105,7 +105,7 @@ def program_numbers(cell: dict, seeds, n_calls: int, device, cache_dir: Path,
             lines = align(traffic.records(call, SeqRecord))
             run.sync(device)
             if sabotage is not None:
-                lines = sabotage(lines)
+                lines = sabotage(lines, gen)
             sample.offer(ci, call, lambda rows: [lines[i] for i in rows])
         judge = run.make_judge(gen, cfg, mix, judge_opts, device, ref=ref)
         sample.check(judge, mix)

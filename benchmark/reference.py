@@ -30,7 +30,12 @@ alone, what a SAM record of salt's aligner has to say:
 * which reads lie in repeats: a read one of whose seeds (its windows of
   l_seed bases every l_overlap, on either strand) occurs more than
   max_seed times, SNP-aware, in the genome.  There salt extends the seed
-  greedily to the left (alnse.c:246-258) and sees a subset of the loci.
+  greedily to the left (alnse.c:246-258) and sees a subset of the loci;
+* the contig of every locus and its position there (bns_coor_pac2real):
+  a genome of several contigs is searched as salt's index searches it,
+  over the contigs laid end to end, and a record names the contig its
+  locus falls in; mates on two contigs name each other's contig, with
+  TLEN 0 and no proper flag (sam.c alnpe_sam).
 
 `Judge` compares the records the program returned against these and
 counts the faults: `fields_wrong`, a record that contradicts the genome
@@ -88,11 +93,15 @@ def gen_mapq(b0: int, b1: int) -> int:
 
 
 class RefGenome:
-    """Allele masks and the 2-bit reference of one contig."""
+    """Allele masks and the 2-bit reference of a genome's contigs laid
+    end to end, and its contig table: `names`, `offsets`, `lengths`."""
 
     def __init__(self, genome, snp_aware: bool = True):
         codes = genome.codes
-        self.name = genome.name
+        self.names = list(genome.contig_names)
+        self.offsets = np.asarray(genome.contig_offsets, dtype=np.int64)
+        self.lengths = np.asarray(genome.contig_lengths, dtype=np.int64)
+        self.contig = {nm: i for i, nm in enumerate(self.names)}
         self.n = len(codes)
         mask = np.where(codes < 4, 1 << np.minimum(codes, 3), 0).astype(np.uint8)
         if snp_aware and len(genome.snp_pos):
@@ -113,6 +122,21 @@ class RefGenome:
 
     def mismatches(self, read: np.ndarray, pos: int) -> int:
         return int(((self.mask_at(pos, len(read)) >> read) & 1 == 0).sum())
+
+    def locus(self, pos: int):
+        """(contig name, 1-based position in it) of genome position `pos`:
+        the last contig whose offset is at or below it, as
+        bns_coor_pac2real (Align_src/bntseq.c:269-280) finds it."""
+        c = int(np.searchsorted(self.offsets, pos, side="right")) - 1
+        return self.names[c], int(pos - self.offsets[c]) + 1
+
+    def at(self, rname: str, pos: int) -> Optional[int]:
+        """The genome position of a record's RNAME and POS, or None where
+        RNAME is no contig or POS lies outside it."""
+        c = self.contig.get(rname)
+        if c is None or not 1 <= pos <= self.lengths[c]:
+            return None
+        return int(self.offsets[c]) + pos - 1
 
 
 def _planes(ref: RefGenome, device, pad: int = 256):
@@ -525,8 +549,11 @@ def _seq_qual(read: np.ndarray, qual: str, strand: int):
 def xa_tag(ref: RefGenome, xa) -> str:
     if not xa:
         return ""
-    return "\tXA:Z:" + "".join(f"{ref.name},{'+-'[s]}{p + 1},*,{nd};"
-                               for s, p, nd in xa)
+    out = []
+    for s, p, nd in xa:
+        name, local = ref.locus(p)
+        out.append(f"{name},{'+-'[s]}{local},*,{nd};")
+    return "\tXA:Z:" + "".join(out)
 
 
 def se_line(ref: RefGenome, name, read, qual, choice) -> str:
@@ -538,15 +565,18 @@ def se_line(ref: RefGenome, name, read, qual, choice) -> str:
     seq, q = _seq_qual(read, qual, s)
     strand_read = revcomp(read) if s else read
     L = len(read)
-    return ("\t".join([name, str(16 if s else 0), ref.name, str(pos + 1),
+    rname, local = ref.locus(pos)
+    return ("\t".join([name, str(16 if s else 0), rname, str(local),
                        str(mapq), f"{L}M", "*", "0", "0", seq, q])
             + xa_tag(ref, xa) + md_nm_xv(ref, pos, strand_read, [(L, "M")]))
 
 
 class Record:
-    """The fields of one SAM line, or None fields when it does not parse."""
+    """The fields of one SAM line, or None fields when it does not parse.
+    `at` is the genome position of its RNAME and POS in `ref` (POS - 1
+    where RNAME is no contig of it, or where no `ref` is given)."""
 
-    def __init__(self, line: str):
+    def __init__(self, line: str, ref: RefGenome = None):
         f = line.rstrip("\n").split("\t")
         self.ok = len(f) >= 11
         if not self.ok:
@@ -560,6 +590,8 @@ class Record:
         except ValueError:
             self.ok = False
             return
+        at = ref.at(self.rname, self.pos) if ref is not None else None
+        self.at = self.pos - 1 if at is None else at
         self.tags = {t[:2]: t[5:] for t in f[11:] if len(t) > 5}
         self.tag_text = "".join("\t" + t for t in f[11:] if t[:2] != "XA")
         self.ops = parse_cigar(self.cigar) if self.cigar != "*" else None
@@ -572,8 +604,11 @@ class Record:
 
 def pair_tlen(a: Record, b: Record, min_tlen: int, max_tlen: int) -> int:
     """sam.c alnpe_sam's template length of the pair of read 1's record a
-    and read 2's record b (with its quirk: a's aligned end less b's
-    clip when a lies right of b), 0 when out of the pair bounds."""
+    and read 2's record b, both mapped (with its quirk: a's aligned end
+    less b's clip when a lies right of b), 0 when out of the pair bounds
+    or on two contigs."""
+    if a.rname != b.rname:
+        return 0
     _la, ta = a.clips()
     lb, tb = b.clips()
     L = len(a.seq)
@@ -655,12 +690,12 @@ class Judge:
             return "SEQ/QUAL are not the read on its strand"
         if rec.flag & 4:
             return None
-        if rec.rname != self.ref.name or not 1 <= rec.pos <= self.ref.n:
+        if self.ref.at(rec.rname, rec.pos) is None:
             return f"locus {rec.rname}:{rec.pos} outside the genome"
         if rec.ops is None or sum(n for n, op in rec.ops if op in "MIS") != L:
             return f"CIGAR {rec.cigar} does not cover the read"
         sread = revcomp(read) if strand else read
-        want = md_nm_xv(self.ref, rec.pos - 1, sread, rec.ops)
+        want = md_nm_xv(self.ref, rec.at, sread, rec.ops)
         if rec.tag_text != want:
             return f"tags {rec.tag_text!r} != {want!r}"
         return None
@@ -669,8 +704,10 @@ class Judge:
         for ent in filter(None, rec.tags.get("XA", "").split(";")):
             chrom, sp, _cig, nd = ent.split(",")
             s, p = (1 if sp[0] == "-" else 0), int(sp[1:]) - 1
-            got = self.ref.mismatches(revcomp(read) if s else read, p)
-            if chrom != self.ref.name or got != int(nd):
+            at = self.ref.at(chrom, p + 1)
+            got = self.ref.mismatches(revcomp(read) if s else read,
+                                      p if at is None else at)
+            if chrom not in self.ref.contig or got != int(nd):
                 return f"XA {ent} reads {got} mismatches"
         return None
 
@@ -678,7 +715,7 @@ class Judge:
         """SNP-aware edit cost of a mapped record's alignment."""
         lead, _tail = rec.clips()
         sread = revcomp(read) if rec.flag & 16 else read
-        return cigar_cost(self.ref, rec.pos - 1, sread[lead:],
+        return cigar_cost(self.ref, rec.at, sread[lead:],
                           [o for o in rec.ops if o[1] != "S"])
 
     def _gapped_ok(self, rec: Record, read, locus: int, strand: int,
@@ -706,13 +743,13 @@ class Judge:
         rep = self.repeats(reads)
         for i, line in enumerate(lines):
             self.checked += 1
-            rec = Record(line)
+            rec = Record(line, self.ref)
             why = self._fields(rec, names[i], reads[i], quals[i])
             if why is None and rec.ok and not rec.flag & 4 and rec.ops \
                     and rec.cigar == f"{len(reads[i])}M" \
                     and self.ref.mismatches(
                         revcomp(reads[i]) if rec.flag & 16 else reads[i],
-                        rec.pos - 1) <= self.max_diff:
+                        rec.at) <= self.max_diff:
                 why = self._xa_counts(rec, reads[i])
             if why:
                 self._fault("fields", names[i], why)
@@ -741,8 +778,9 @@ class Judge:
             if not m.flag & 4:
                 if bool(r.flag & 0x20) != bool(m.flag & 0x10):
                     return "mate-reverse flag"
-                if r.rnext != "=" or r.pnext != m.pos:
-                    return f"mate fields {r.rnext}:{r.pnext} != ={m.pos}"
+                want = "=" if r.flag & 4 or r.rname == m.rname else m.rname
+                if r.rnext != want or r.pnext != m.pos:
+                    return f"mate fields {r.rnext}:{r.pnext} != {want}{m.pos}"
                 if r.flag & 4 and (r.rname != m.rname or r.pos != m.pos):
                     return "unmapped end not placed at its mate"
             elif r.rnext != "*" or r.pnext != 0:
@@ -759,7 +797,7 @@ class Judge:
 
     def _window_of(self, rec: Record, L: int):
         """The rescue window next to a mapped record, for its mate."""
-        return rescue_window(rec.pos - 1, 1 if rec.flag & 16 else 0, L, L,
+        return rescue_window(rec.at, 1 if rec.flag & 16 else 0, L, L,
                              self.min_tlen, self.max_tlen, self.ref.n)
 
     def _pe_end_ok(self, recs, e: int, reads, loci, reverse,
@@ -779,7 +817,7 @@ class Judge:
         in_win = None
         if not mate.flag & 4:
             a, b, _s = self._window_of(mate, L)
-            in_win = (not rec.flag & 4) and a <= rec.pos - 1 <= b
+            in_win = (not rec.flag & 4) and a <= rec.at <= b
         best = seeded_best(self.ref, sread, int(loci[e]), self.l_seed,
                            self.l_overlap, self.max_diff)
         if best is not None and best <= self.max_diff:
@@ -794,7 +832,7 @@ class Judge:
         ms = int(reverse[m])
         if len(uniq) != 1 or mate.flag & 4 or uniq[0][0] != int(loci[m]) \
                 or (0 if mate_hits[0] else 1) != ms \
-                or (1 if mate.flag & 16 else 0, mate.pos - 1) != (ms, int(loci[m])):
+                or (1 if mate.flag & 16 else 0, mate.at) != (ms, int(loci[m])):
             return None
         a, b, want_strand = rescue_window(int(loci[m]), ms, L, L,
                                           self.min_tlen, self.max_tlen,
@@ -812,10 +850,10 @@ class Judge:
         if in_win and rec.clips() == (0, 0) \
                 and self._cost(rec, read) <= self.max_diff:
             return None         # the SE stage's gapped alignment, paired
-        got = sw_score(self.ref, rec.pos - 1,
+        got = sw_score(self.ref, rec.at,
                        revcomp(read) if rec.flag & 16 else read, rec.ops)
         if not in_win or got < bound:
-            return (f"end {e + 1} at {rec.pos - 1} {rec.cigar} scores {got}; "
+            return (f"end {e + 1} at {rec.at} {rec.cigar} scores {got}; "
                     f"its true alignment at {p0} scores {bound} in the "
                     f"rescue window [{a}, {b}]")
         return None
@@ -829,7 +867,7 @@ class Judge:
         rep = self.repeats(flat)
         for i in range(R):
             self.checked += 1
-            recs = [Record(x) for x in pair_lines[i]]
+            recs = [Record(x, self.ref) for x in pair_lines[i]]
             why = None
             for e in (0, 1):
                 why = why or self._fields(recs[e], names[i], reads[e, i],
@@ -853,7 +891,7 @@ class Judge:
                 span = (max(a, b) + L - min(a, b))
                 if self.min_tlen <= span <= self.max_tlen and \
                         want[0][0] != want[1][0]:
-                    got = [(1 if r.flag & 16 else 0, r.pos - 1) for r in recs]
+                    got = [(1 if r.flag & 16 else 0, r.at) for r in recs]
                     if got != want or any(r.cigar != f"{L}M" for r in recs):
                         why = f"pair at {got}, its unique loci are {want}"
             for e in (0, 1):
@@ -898,8 +936,9 @@ def aligned_se(ref: RefGenome, names, reads, quals, loci, reverse, max_diff,
             continue
         seq, q = _seq_qual(reads[i], quals[i], s)
         cig = "".join(f"{n}{op}" for n, op in ops)
-        out.append("\t".join([names[i], str(16 if s else 0), ref.name,
-                              str(pos + 1), "0", cig, "*", "0", "0", seq, q])
+        rname, local = ref.locus(pos)
+        out.append("\t".join([names[i], str(16 if s else 0), rname,
+                              str(local), "0", cig, "*", "0", "0", seq, q])
                    + md_nm_xv(ref, pos, sread, ops))
     return out
 
@@ -908,7 +947,7 @@ def aligned_pe(ref: RefGenome, names, reads, quals, loci, reverse, max_diff,
                gap_k, device, min_tlen=250, max_tlen=550):
     """PE line pairs written by the reference itself: each end as
     aligned_se places it, the pair's fields as sam.c alnpe_sam sets
-    them."""
+    them (RNEXT the mate's contig where the two differ)."""
     R = reads.shape[1]
     ends = [aligned_se(ref, names, reads[e], quals, loci[e], reverse[e],
                        max_diff, gap_k, device) for e in (0, 1)]
@@ -929,7 +968,8 @@ def aligned_pe(ref: RefGenome, names, reads, quals, loci, reverse, max_diff,
             if not mapped[e] and mapped[1 - e]:
                 g[2], g[3], g[4], g[5] = m.rname, str(m.pos), "255", "*"
             if mapped[1 - e]:
-                g[6], g[7] = "=", str(m.pos)
+                same = not mapped[e] or r.rname == m.rname
+                g[6], g[7] = "=" if same else m.rname, str(m.pos)
             g[8] = str(0 if t == 0 else (-t if r.pos >= m.pos else t))
             pair.append("\t".join(g))
         out.append(pair)

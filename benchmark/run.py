@@ -7,9 +7,11 @@ A cell is an entry of BENCHMARK.json's `workloads`.  Everything that
 belongs to one configuration, traffic mix, limit set or metric is a file
 of its own that this harness finds by name:
 
-    benchmark/configs/<config>.json   genome, SNPs, index options, and
-                                      `idx_args` / `aln_args` for the
-                                      port's `idx` and `aln` commands
+    benchmark/configs/<config>.json   genome (one contig, or
+                                      `genome.contigs`), SNPs, index
+                                      options, and `idx_args` /
+                                      `aln_args` for the port's `idx`
+                                      and `aln` commands
     benchmark/traffic/<mix>.json      read simulation, call size, and
                                       `aln_args` of its own
     benchmark/limits/<cell>.json      the limits `correct` is held to
@@ -151,31 +153,43 @@ def build_aligner(prefix: str, paired: bool, device: str, extra=()):
         t1 - box["t_loaded"]
 
 
+def write_inputs(gen, fa: Path, snp: Path) -> None:
+    """The genome as FASTA, a record a contig, and its SNP table in
+    salt's format: contig by contig in FASTA order, each line with its
+    contig's name and 1-based position in it."""
+    chars = gen.chars()
+    table = list(zip(gen.contig_names, gen.contig_offsets.tolist(),
+                     gen.contig_lengths.tolist()))
+    with open(fa, "wb") as fh:
+        for name, off, ln in table:
+            fh.write(f">{name}\n".encode())
+            for i in range(off, off + ln, 1 << 20):
+                fh.write(chars[i:min(i + (1 << 20), off + ln)].tobytes())
+            fh.write(b"\n")
+    lut = "ACGTN"
+    with open(snp, "w") as fh:
+        for p, c, r, a in zip(gen.snp_pos.tolist(),
+                              gen.contig_of(gen.snp_pos).tolist(),
+                              gen.codes[gen.snp_pos].tolist(),
+                              gen.snp_alt.tolist()):
+            name, off, _ln = table[c]
+            fh.write(f"{name}\t{p - off + 1}\t{lut[r]}/{lut[a]}\t{lut[r]}\n")
+
+
 def ensure_index(cfg: dict, gen, prefix: Path) -> float:
     """Build and save the configuration's index once a checkout, as a
     user does: the port's `idx -k <l_seed> <idx_args>` command, in a
-    child process, over the genome written as FASTA and the SNP table
-    in salt's format.  Returns the seconds it took (0 when built
-    before)."""
+    child process, over the genome and SNP table `write_inputs` writes.
+    Every file `idx` writes (with `--shards N`, the shards and their
+    manifest too) moves under `prefix`.  Returns the seconds it took (0
+    when built before)."""
     if Path(str(prefix) + ".salt.json").exists():
         return 0.0
     t = time.perf_counter()
     work = prefix.parent / f"{prefix.name}.build"
     work.mkdir(parents=True, exist_ok=True)
     fa, snp = work / "genome.fa", work / "genome.snp"
-    chars = gen.chars()
-    with open(fa, "wb") as fh:
-        fh.write(f">{gen.name}\n".encode())
-        for i in range(0, len(chars), 1 << 20):
-            block = chars[i:i + (1 << 20)]
-            fh.write(block.tobytes())
-        fh.write(b"\n")
-    lut = "ACGTN"
-    with open(snp, "w") as fh:
-        for p, r, a in zip(gen.snp_pos.tolist(),
-                           gen.codes[gen.snp_pos].tolist(),
-                           gen.snp_alt.tolist()):
-            fh.write(f"{gen.name}\t{p + 1}\t{lut[r]}/{lut[a]}\t{lut[r]}\n")
+    write_inputs(gen, fa, snp)
     out = work / "idx"
     argv = [sys.executable, "-m", "salt_tpu_torch.cli", "idx", "-k",
             str(cfg["index"]["l_seed"]), *cfg.get("idx_args", []),
@@ -380,6 +394,7 @@ def run_cell(cell: str, cfg: dict, cfg_bytes: bytes, mix: dict, limits: dict,
     stages.metrics_reset()
     sample = Sample(mix["check_sample"], seed)
     timed, units, staged_units, failed, prof_out = 0.0, 0, 0, 0, None
+    staged_s = 0.0
     ci = 0
     while ci < (2 if trace else 1) or timed < seconds:
         call = traffic.make_call(haps, mix, seed, ci)
@@ -410,8 +425,9 @@ def run_cell(cell: str, cfg: dict, cfg_bytes: bytes, mix: dict, limits: dict,
             stages.metrics_reset()
         else:
             staged_units += n
+            staged_s += dt
         if sabotage is not None:
-            lines = sabotage(lines)
+            lines = sabotage(lines, gen)
         failed += sum(1 for x in lines
                       if not (x if isinstance(x, str) else all(x)))
         sample.offer(ci, call, lambda rows: [lines[i] for i in rows])
@@ -445,6 +461,7 @@ def run_cell(cell: str, cfg: dict, cfg_bytes: bytes, mix: dict, limits: dict,
 
     run = {"units": units, "timed_s": timed, "setup_s": setup_s,
            "stages": stage_table, "staged_units": staged_units,
+           "staged_s": staged_s, "memory_peak_bytes": peak,
            "trace": prof_out}
     e2e, layer = cell_metrics(bench, cell)
     out_metrics = {}

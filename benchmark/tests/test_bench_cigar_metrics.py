@@ -11,7 +11,7 @@ from benchmark import run
 from benchmark.tests.helpers import bench
 from test_bench_metrics import RUN
 
-CELLS = {"chr21_snp144.se_wgsim", "chr21_snp144_sampled.se_wgsim"}
+CELLS = {"chr21_snp144.se_wgsim"}
 STAGES = dict(RUN["stages"], **{"host.emit": 3.0, "host.cigar": 0.3})
 COUNTERS = {"host.sync": 9_000, "lv.cigar_rows": 30_000}
 WANT = {"cigar_ms_per_kread.se": 1.5, "cigar_rows_per_kread.se": 150.0}

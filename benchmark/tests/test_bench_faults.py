@@ -48,8 +48,10 @@ def test_run_judges_faults(cell, fault, recipe, cache):
     assert res["correct"] is (fault is None), res["checks"]
     if fault is None:
         assert res["failed"] == 0
-    e2e = {m["name"] for m in run.cell_metrics(bench(), cell)[0]}
-    assert set(res["metrics"]) == e2e
+    e2e = run.cell_metrics(bench(), cell)[0]
+    # a metric read from the card finds nothing to read on the CPU
+    assert set(res["metrics"]) == {m["name"] for m in e2e
+                                   if m["source"] != "device_trace"}
 
 
 def test_sample_keeps_the_least_keys_of_all_calls():

@@ -59,6 +59,7 @@ def test_trace_reduction():
 
 RUN = {
     "units": 300_000, "timed_s": 12.0, "setup_s": 7.5, "staged_units": 200_000,
+    "staged_s": 8.0, "memory_peak_bytes": 1_331_483_136,
     "stages": {"host.finalize": 4.0, "device.dispatch": 1.0,
                "device.ungapped": 0.5, "device.gapped": 0.2,
                "host.pairing": 1.5, "host.sam": 0.5, "host.rescue": 0.3,
@@ -70,7 +71,9 @@ RUN = {
 
 @pytest.mark.parametrize("name, want", [
     ("se_reads_per_s", 25_000.0),
-    ("pe_pairs_per_s", 25_000.0),
+    ("pe_pairs_per_s.pe", 25_000.0),
+    ("se_reads_per_s.sampled", 25_000.0),
+    ("device_memory_peak_gb", 1.331483136),
     ("setup_s", 7.5),
     ("finalize_ms_per_kread.se", 20.0),
     ("ungapped_ms_per_kread.se", 7.5),
@@ -88,10 +91,15 @@ def test_metric_arithmetic(name, want):
 
 @pytest.mark.parametrize("name", ["gapped_ms_per_kread.se",
                                   "launches_per_kread.se",
-                                  "device_idle_share.se"])
+                                  "device_idle_share.se",
+                                  "se_reads_per_s.sampled",
+                                  "pe_pairs_per_s.pe",
+                                  "device_memory_peak_gb"])
 def test_metric_with_nothing_to_read_is_left_out(name):
-    empty = dict(RUN, stages={}, trace={"busy_s": 0.0, "window_s": 1.0,
-                                        "device_ops": 0, "units": 10})
+    empty = dict(RUN, stages={}, staged_units=0, staged_s=0.0,
+                 memory_peak_bytes=0,
+                 trace={"busy_s": 0.0, "window_s": 1.0, "device_ops": 0,
+                        "units": 10})
     assert run.load_reader(name)(empty) is None
 
 

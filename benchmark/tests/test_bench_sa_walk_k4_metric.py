@@ -61,4 +61,5 @@ def test_k4_share_belongs_to_the_sampled_cell_alone():
         assert (NAME in names) == (cell == CELL)
     (m,) = [m for m in b["per_layer"] if m["name"] == NAME]
     assert (m["unit"], m["layer"], m["moves"], m["source"]) == (
-        "%", "device ungapped step", "se_reads_per_s", "program_counter")
+        "%", "device ungapped step", "device_memory_peak_gb",
+        "program_counter")

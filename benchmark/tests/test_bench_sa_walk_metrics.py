@@ -16,6 +16,12 @@ CELL = "chr21_snp144_sampled.se_wgsim"
 STAGES = dict(RUN["stages"], **{"device.locate": 3.0, "device.sa_walk": 2.5})
 COUNTERS = {"host.sync": 9_000, "sa_walk.blocks": 450,
             "sa_walk.slots": 450 * 8_192 * 128}
+# the cell's twins of the full SE cell's `.se` metrics read from spans
+# and counters, and its rate, which it reports per layer
+SPAN_METRICS = {f"{m}_per_kread.sampled" for m in (
+    "ungapped_ms", "seed_ms", "locate_ms", "syncs", "overflow_rows")} | {
+    "se_reads_per_s.sampled"}
+TRACE_METRICS = {"launches_per_kread.sampled", "device_idle_share.sampled"}
 WANT = {
     "sa_walk_ms_per_kread.sampled": 12.5,
     "sa_walk_blocks_per_kread.sampled": 2.25,
@@ -68,11 +74,12 @@ def test_walk_metrics_belong_to_the_sampled_cell_alone():
         assert (set(WANT) <= names) == (cell == CELL)
         assert not (set(WANT) & names) or cell == CELL
     e2e, layer = run.cell_metrics(b, CELL)
-    assert {m["name"] for m in e2e} == {"se_reads_per_s", "setup_s"}
+    assert {m["name"] for m in e2e} == {"device_memory_peak_gb", "setup_s"}
     assert {m["layer"] for m in layer if m["name"] in WANT} == {
         "device ungapped step"}
-    full = {m["name"] for m in run.cell_metrics(b, "chr21_snp144.se_wgsim")[1]}
-    assert {m["name"] for m in layer} == full | set(WANT)
+    assert {m["name"] for m in layer} == \
+        SPAN_METRICS | TRACE_METRICS | set(WANT) | {"sa_walk_k4_share.sampled"}
+    assert {m["moves"] for m in layer} == {"device_memory_peak_gb"}
 
 
 def test_sampled_cell_runs_sampled_mode_on_the_full_cells_genome():
@@ -90,8 +97,9 @@ def test_sampled_cell_runs_sampled_mode_on_the_full_cells_genome():
 
 def test_traced_sampled_run_reports_the_walk(tmp_path):
     """A whole traced run of the cell on the CPU, cut small: correct, and
-    its line holds the three walk metrics beside the accepted `.se` ones
-    (those read from a device trace find none on the CPU)."""
+    its line holds the three walk metrics beside the cell's other span and
+    counter metrics and its rate (those read from a device trace find none
+    on the CPU)."""
     cfg, cfg_bytes, mix, limits = tiny(CELL, bases=100_000, per_call=300,
                                        sample=60)
     mix["aln_args"] = ["--batch-size", "256"]     # a warm-up of 300 reads
@@ -104,7 +112,6 @@ def test_traced_sampled_run_reports_the_walk(tmp_path):
     assert got["sa_walk_slots_per_kread.sampled"]["value"] >= \
         128 * got["sa_walk_blocks_per_kread.sampled"]["value"]
     assert got["sa_walk_ms_per_kread.sampled"]["value"] > 0
-    _e2e, layer = run.cell_metrics(bench(), CELL)
-    se = {m["name"] for m in layer if m["name"].endswith(".se")
-          and m["source"] != "device_trace"}
-    assert len(se) == 9 and se <= set(got)
+    assert SPAN_METRICS <= set(got)
+    assert not TRACE_METRICS & set(got)
+    assert got["se_reads_per_s.sampled"]["value"] > 0

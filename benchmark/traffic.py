@@ -29,8 +29,9 @@ without them has the same reads):
 The sample (two haplotypes of the configuration's genome, with its
 mutations) is made from the seed once a run; each call's reads are made
 from (seed, call index).  Reads lie wholly on non-N sequence of a
-haplotype, drawn uniformly, on both strands.  Each read keeps its truth
-(`Call.locus`, `Call.reverse`).
+haplotype, drawn uniformly, on both strands; a read (se) or a template
+(pe) lies on one contig.  Each read keeps its truth (`Call.locus`,
+`Call.reverse`, in the coordinates of the contigs laid end to end).
 """
 
 from __future__ import annotations
@@ -52,11 +53,14 @@ def _rng(*key) -> np.random.Generator:
 class Haplotype:
     """A mutated copy of the genome: codes and, for every base, the
     reference coordinate it came from (an inserted base takes its
-    anchor's)."""
+    anchor's); `contig_of`, the genome's map from coordinates to contigs
+    where it has more than one contig."""
 
-    def __init__(self, codes: np.ndarray, ref_coord: np.ndarray):
+    def __init__(self, codes: np.ndarray, ref_coord: np.ndarray,
+                 contig_of=None):
         self.codes = codes
         self.ref_coord = ref_coord
+        self.contig_of = contig_of
         # starts of windows free of N, by prefix sums of N counts
         self.n_prefix = np.concatenate(
             [[0], np.cumsum(codes >= 4, dtype=np.int64)])
@@ -85,6 +89,7 @@ def make_sample(genome, mix: dict, seed: int):
     ext = rng.geometric(1.0 - mix["indel_extend"], m)
     ins_len = np.minimum(ext, 4)
     ins_bases = rng.integers(0, 4, (m, 4)).astype(np.uint8)
+    contig_of = genome.contig_of if len(genome.contig_names) > 1 else None
     haps = []
     for h in (0, 1):
         on = hom | (which == h)
@@ -106,19 +111,22 @@ def make_sample(genome, mix: dict, seed: int):
         for p, ln, bases in zip(mpos[ins].tolist(), ins_len[ins].tolist(),
                                 ins_bases[ins]):
             out[first[p] + 1:first[p] + 1 + ln] = bases[:ln]
-        haps.append(Haplotype(out, ref_coord))
+        haps.append(Haplotype(out, ref_coord, contig_of))
     return haps
 
 
 def _starts(hap: Haplotype, span: np.ndarray, rng) -> np.ndarray:
     """A start for each template length in `span`, uniform over the
-    windows of the haplotype that hold no N."""
+    windows of the haplotype that hold no N and lie on one contig."""
     out = np.empty(len(span), dtype=np.int64)
     todo = np.arange(len(span))
     n = len(hap.codes)
     while len(todo):
         s = rng.integers(0, n - span[todo] + 1)
         ok = hap.n_prefix[s + span[todo]] == hap.n_prefix[s]
+        if hap.contig_of is not None:
+            ok &= hap.contig_of(hap.ref_coord[s]) == \
+                hap.contig_of(hap.ref_coord[s + span[todo] - 1])
         out[todo[ok]] = s[ok]
         todo = todo[~ok]
     return out
